@@ -6,30 +6,46 @@
 Phases, each asserting (any failure exits non-zero and prints no result):
 
 1. device   — the card's name and its ``nvidia-smi`` name/power-limit line;
-2. build    — ``nvcc`` builds every kernel source of the serving path from
-              the checkout (``sm_90a``), all sources at once;
-3. kernels  — each kernel's wrapper on CUDA tensors at the serving path's
-              shapes (all four ops, a ragged G) against its plain PyTorch
+2. build    — ``nvcc`` builds every kernel source of the port from the
+              checkout (``sm_90a``), all sources at once: the level kernels,
+              the NTT, label select and the Half-Gate gate kernels;
+3. kernels  — each kernel's wrapper on CUDA tensors at the shapes its path
+              gives it, plus a ragged size, against its plain PyTorch
               version on the same inputs: bit-exact; kernel time (device
               time from ``torch.profiler``), the plain version's time and
               the roofline bound;
 4. parity   — the GC executor (GeLU netlist, I=64) and a private
               transformer session (d=64, 4 heads, d_ff=128, 1 layer, S=4)
               on ``cuda`` against the same on ``cpu``: bit-exact;
-5. serving  — ``PrivateServeEngine`` → ``compile_session`` → ``preprocess``
+5. gates    — the Half-Gate entry points (``garble_and_gates`` →
+              ``select_labels`` → ``eval_and_gates``) on G independent AND
+              gates: every output decodes to a AND b; launch counters zeroed
+              just before and read just after;
+6. he       — ``PiTProtocol(PrivacyConfig(frac_bits=6))`` key generation
+              and ``linear_offline(use_he_offline=True)`` at BERT-base
+              widths (768→768, 768→3072): the decrypted W·r1 equals the
+              exact product mod t and the card equals the CPU, bit for bit;
+              seconds of keygen / encrypt / he_matvec / decrypt and NTT
+              launches; the same at frac_bits=12, where the count of wrong
+              outputs (a fault of the reference protocol) is printed, not
+              asserted;
+7. serving  — ``PrivateServeEngine`` → ``compile_session`` → ``preprocess``
               → ``serve`` at BERT-base width (d=768, 12 heads, d_ff=3072,
               GeLU, LayerNorm offload, wire v1); depth and sequence length
               are cut only to fit the time limit (``--layers``, ``--seq``).
-              The launch counters are zeroed just before and read just
-              after; every kernel of the path must have launched.
-6. profile  — one more request on the same engine under ``torch.profiler``
+              The launch counters are zeroed just before the model is built
+              (its protocols generate HE keys) and read just after the last
+              request; every kernel of the path (level garble/eval, NTT,
+              label select) must have launched.
+8. profile  — one more request on the same engine under ``torch.profiler``
               (after the counters are read): device time by kernel and the
               device's busy share of that request's wall time.
 
-The line before the last is the ``kernels`` JSON summary; the last line is
-``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
-measurement (per-shape kernel times, phase times, span totals) to PATH.
-Needs ``torch`` with CUDA and ``nvcc``; there is no CPU fallback.
+The line before the last is the ``kernels`` JSON summary of all six
+kernels; the last line is ``{"ok": true, "device": {...}}``. ``--json
+PATH`` also writes every measurement (per-shape kernel times, phase times,
+span totals) to PATH. Needs ``torch`` with CUDA and ``nvcc``; there is no
+CPU fallback.
 """
 
 from __future__ import annotations
@@ -88,6 +104,8 @@ def _ms_kernel(fn, name, reps):
                 us = ev.cuda_time_total
             if us > 0:
                 return us / ev.count / 1e3
+    print(f"[kernels] no device time for {name!r} in the trace; keys: "
+          + "; ".join(ev.key[:60] for ev in events))
     return None
 
 
@@ -96,11 +114,35 @@ def _max_abs_diff(xs, ys):
                else 0 for x, y in zip(xs, ys))
 
 
-def _bound_ms(lanes, bytes_per_lane, ops_per_lane):
-    t_bytes = lanes * bytes_per_lane / HBM_BYTES_PER_S
-    t_ops = lanes * ops_per_lane / INT32_OPS_PER_S
+def _bound(nbytes, nops):
+    """Least time for the work, in ms: bytes over HBM bandwidth or integer
+    operations over the int32 rate, whichever is larger, and which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = nops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _bound_ms(lanes, bytes_per_lane, ops_per_lane, extra_bytes=0):
+    return _bound(lanes * bytes_per_lane + extra_bytes, lanes * ops_per_lane)
+
+
+def _timed(fn, plain, kernel_sym, reps=20, plain_reps=5):
+    """Kernel time (profiler device time per launch, else CUDA events
+    around the call), wrapper-call time and the plain version's time."""
+    import torch
+
+    fn()
+    plain()
+    torch.cuda.synchronize()
+    ms = _ms_kernel(fn, kernel_sym, reps)
+    if ms is None:  # one more trace before falling back to events
+        ms = _ms_kernel(fn, kernel_sym, reps)
+    call_ms = _ms_events(fn, reps)
+    plain_ms = _ms_events(plain, plain_reps)
+    return dict(ms=ms if ms is not None else call_ms,
+                timing="profiler" if ms is not None else "events",
+                call_ms=call_ms, plain_ms=plain_ms)
 
 
 def phase_device():
@@ -118,12 +160,20 @@ def phase_device():
     return name, smi.stdout.strip().splitlines()[0]
 
 
+def _sources():
+    from repro_torch.kernels.halfgate import halfgate as HK
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
+
+    return [LE.SOURCE, NTT.SOURCE, LS.SOURCE, HK.SOURCE]
+
+
 def phase_build():
     from repro_torch.kernels import build
-    from repro_torch.kernels.level_eval import level_eval as LE
 
     t0 = time.perf_counter()
-    built = build.build([LE.SOURCE])
+    built = build.build(_sources())
     secs = time.perf_counter() - t0
     for b in built:
         regs = [ln.strip() for ln in b.log.splitlines()
@@ -189,19 +239,10 @@ def phase_kernels(args):
                 ("garble_level", lambda: LE.garble_level(*ga),
                  lambda: ref.garble_level(*ga), "garble_level_kernel",
                  LE.GARBLE_BYTES, LE.GARBLE_OPS)):
-            fn()
-            plain()
-            torch.cuda.synchronize()
-            ms = _ms_kernel(fn, kernel_sym, 20)
-            call_ms = _ms_events(fn, 20)
-            plain_ms = _ms_events(plain, 5)
             bound, by = _bound_ms(G, nbytes, nops)
             line[kname] = dict(max_abs_err=err[kname],
-                               ms=ms if ms is not None else call_ms,
-                               timing="profiler" if ms is not None
-                               else "events", call_ms=call_ms,
-                               plain_ms=plain_ms, bound_ms=bound,
-                               bound_by=by)
+                               **_timed(fn, plain, kernel_sym),
+                               bound_ms=bound, bound_by=by)
         rows[G] = line
         print(f"[kernels] G={G}: bit-exact; " + "; ".join(
             f"{k} {line[k]['ms']:.4f} ms (call {line[k]['call_ms']:.4f}, "
@@ -211,6 +252,300 @@ def phase_kernels(args):
     del v, ev, ga, got, want, gg, gw
     torch.cuda.empty_cache()
     return rows, g_eval, g_garble
+
+
+def _print_rows(tag, rows):
+    for r in rows:
+        print(f"[kernels] {tag} {r['shape']}: bit-exact; {r['ms']:.4f} ms "
+              f"(call {r['call_ms']:.4f}, plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+
+
+def phase_kernels_ntt(args):
+    """NTT forward and inverse at N=2048: the 3 HE primes over the rows of
+    a d→d ``he_matvec`` (P x blocks) and a ragged row count, and one limb
+    prime below 46340 (the Pallas kernel's range) at the same sizes."""
+    import torch
+    from repro_torch.config import PrivacyConfig
+    from repro_torch.core import he as HE
+    from repro_torch.kernels.ntt import ntt as NTT
+    from repro_torch.kernels.ntt import ref as NR
+
+    pc = PrivacyConfig()
+    params = HE.make_params(n=pc.he_poly_n, num_primes=pc.he_num_primes,
+                            t_bits=pc.he_t_bits)
+    n, qs = params.n, params.qs
+    limb = NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]
+    _, blocks = HE.matvec_plan(params, args.d, args.d)
+    gen = torch.Generator().manual_seed(args.seed)
+    rows, err = [], 0
+    for q, per in ((qs, blocks), (qs, 37), (limb, len(qs) * blocks),
+                   (limb, 1001)):
+        P = len(NR.primes_of(q))
+        x = torch.stack([torch.randint(0, p, (per, n), generator=gen)
+                         for p in NR.primes_of(q)]).to(DEVICE)
+        if P == 1:
+            x = x[0]
+        for inverse, kern, plain in ((False, NTT.ntt_forward, NR.ntt_forward),
+                                     (True, NTT.ntt_inverse, NR.ntt_inverse)):
+            got, want = kern(x, q), plain(x, q)
+            torch.cuda.synchronize()
+            e = _max_abs_diff([got], [want])
+            assert e == 0, f"ntt (inverse={inverse}) != plain at {q}, {per}"
+            err = max(err, e)
+            if per in (37, 1001):
+                continue
+            nrows = P * per
+            ops = nrows * (n // 2 * (n.bit_length() - 1)
+                           * NTT.OPS_PER_BUTTERFLY
+                           + (n * NTT.OPS_PER_SCALE if inverse else 0))
+            # residues in and out, the (P, n) int32 table, (P, 3) constants;
+            # a 64-bit operation counted as one int32 operation
+            bound, by = _bound(nrows * n * NTT.BYTES_PER_COEFF
+                               + P * n * 4 + P * 24, ops)
+            rows.append(dict(
+                shape=f"{'inverse' if inverse else 'forward'} P={P} "
+                      f"rows={nrows} N={n} q={'HE' if P > 1 else limb}",
+                inverse=inverse, P=P, rows=nrows, n=n,
+                **_timed(lambda: kern(x, q), lambda: plain(x, q),
+                         "ntt_kernel"),
+                bound_ms=bound, bound_by=by, ops_64bit=ops))
+    _print_rows("ntt", rows)
+    print(f"[kernels] ntt bound: {NTT.BYTES_PER_COEFF} B per coefficient "
+          f"(int64 in and out) plus the int32 table; "
+          f"{NTT.OPS_PER_BUTTERFLY} 64-bit operations per butterfly "
+          f"(+{NTT.OPS_PER_SCALE} per coefficient for the inverse's n^-1), "
+          "each counted as one int32 operation")
+    return rows, err
+
+
+def phase_kernels_gates(args, gates):
+    """Half-Gate garble / eval of independent AND gates (the Pallas
+    kernels' operands) at G gates and a ragged G; label select at the
+    serving path's OT and input-encoding shapes (R shared per instance)
+    and a ragged shape."""
+    import torch
+    from repro_torch.config import PrivacyConfig
+    from repro_torch.core import he as HE
+    from repro_torch.core.circuits.shares import gc_word_bits
+    from repro_torch.kernels.halfgate import halfgate as HK
+    from repro_torch.kernels.halfgate import ref as HR
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.label_select import ref as LR
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    hg, err = [], {"garble_and": 0, "eval_and": 0, "select_labels": 0}
+    for G in (gates, 12345):
+        v = _level_inputs(G, gen, dev)
+        ga = (v["a"], v["b"], v["r"], v["tw"])
+        ev = (v["a"], v["b"], v["tg"], v["te"], v["tw"])
+        e1 = _max_abs_diff(HK.garble_gates(*ga), HR.garble_and_gates(*ga))
+        e2 = _max_abs_diff([HK.eval_gates(*ev)], [HR.eval_and_gates(*ev)])
+        torch.cuda.synchronize()
+        assert e1 == 0 and e2 == 0, f"Half-Gate kernels != plain at G={G}"
+        err["garble_and"] = max(err["garble_and"], e1)
+        err["eval_and"] = max(err["eval_and"], e2)
+        if G != gates:
+            continue
+        for name, fn, plain, sym, nb, no in (
+                ("garble_and", lambda: HK.garble_gates(*ga),
+                 lambda: HR.garble_and_gates(*ga), "garble_and_kernel",
+                 HK.GARBLE_BYTES, HK.GARBLE_OPS),
+                ("eval_and", lambda: HK.eval_gates(*ev),
+                 lambda: HR.eval_and_gates(*ev), "eval_and_kernel",
+                 HK.EVAL_BYTES, HK.EVAL_OPS)):
+            bound, by = _bound_ms(G, nb, no)
+            hg.append(dict(name=name, shape=f"{name} G={G}", G=G,
+                           **_timed(fn, plain, sym), bound_ms=bound,
+                           bound_by=by))
+    _print_rows("halfgate", hg)
+
+    pc = PrivacyConfig()
+    k = gc_word_bits(HE.make_params(n=pc.he_poly_n,
+                                    num_primes=pc.he_num_primes,
+                                    t_bits=pc.he_t_bits).t)
+    inst = args.seq * args.d_ff  # GeLU instances of one request
+    ls = []
+    for lead, main in (((inst, 2 * k), True), ((inst, k), True),
+                       ((37, 41), False)):
+        w0 = torch.randint(-(1 << 31), 1 << 31, (*lead, 4), dtype=torch.int32,
+                           generator=gen).to(dev)
+        r = torch.randint(-(1 << 31), 1 << 31, (lead[0], 1, 4),
+                          dtype=torch.int32, generator=gen).to(dev)
+        bits = torch.randint(0, 2, lead, dtype=torch.int32,
+                             generator=gen).to(dev)
+        e = _max_abs_diff([LS.select_labels(w0, r, bits)],
+                          [LR.select_labels(w0, r, bits)])
+        torch.cuda.synchronize()
+        assert e == 0, f"select_labels != plain at {lead}"
+        err["select_labels"] = max(err["select_labels"], e)
+        if not main:
+            continue
+        G = lead[0] * lead[1]
+        bound, by = _bound_ms(G, LS.BYTES_PER_ROW, LS.OPS_PER_ROW,
+                              extra_bytes=lead[0] * 16)
+        ls.append(dict(name="select_labels",
+                       shape=f"select_labels I={lead[0]} x {lead[1]} wires",
+                       G=G, **_timed(lambda: LS.select_labels(w0, r, bits),
+                                     lambda: LR.select_labels(w0, r, bits),
+                                     "select_labels_kernel"),
+                       bound_ms=bound, bound_by=by))
+    _print_rows("label_select", ls)
+    return hg, ls, err
+
+
+def phase_gates(args, gates):
+    """The Half-Gate entry points end to end on independent AND gates:
+    garble, choose active labels, evaluate, decode."""
+    import torch
+    from repro_torch.kernels import halfgate as HP
+    from repro_torch.kernels.halfgate import halfgate as HK
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.label_select import select_labels
+
+    gen = torch.Generator().manual_seed(args.seed + 2)
+    words = lambda *s: torch.randint(  # noqa: E731
+        -(1 << 31), 1 << 31, s, dtype=torch.int32, generator=gen)
+    a0, b0, r = words(gates, 4), words(gates, 4), words(1, 4)
+    r[:, 0] |= 1
+    tw = torch.arange(gates, dtype=torch.int32)
+    abits = torch.randint(0, 2, (gates,), generator=gen)
+    bbits = torch.randint(0, 2, (gates,), generator=gen)
+    a0, b0, r, tw, abits, bbits = (x.to(DEVICE) for x in
+                                   (a0, b0, r, tw, abits, bbits))
+    HK.reset_launches()
+    LS.reset_launches()
+    t0 = time.perf_counter()
+    c0, tg, te = HP.garble_and_gates(a0, b0, r, tw)
+    a = select_labels(a0, r, abits)
+    b = select_labels(b0, r, bbits)
+    c = HP.eval_and_gates(a, b, tg, te, tw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"garble_and": HK.garble_gates.launches,
+                "eval_and": HK.eval_gates.launches,
+                "select_labels": LS.select_labels.launches}
+    # the output label encodes a AND b: c == c0 ^ (R if a & b)
+    want = c0 ^ (r & -(abits & bbits).to(torch.int32)[:, None])
+    assert torch.equal(c, want), "Half-Gate outputs do not decode to a & b"
+    assert all(v > 0 for v in launches.values()), launches
+    print(f"[gates] {gates:,} AND gates garbled, labels chosen, evaluated "
+          f"and decoded to a & b through the entry points ({secs:.3f} s); "
+          f"launches {launches}")
+    return {"G": gates, "seconds": secs, "launches": launches}
+
+
+def phase_he(args):
+    """HE on the card at BERT-base widths; card == CPU, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.config import PrivacyConfig
+    from repro_torch.core import he as HE
+    from repro_torch.core import secret_sharing as SS
+    from repro_torch.core.protocol import PiTProtocol
+    from repro_torch.kernels.ntt import ntt as NTT
+
+    def launches():
+        return NTT.ntt_forward.launches + NTT.ntt_inverse.launches
+
+    rng = np.random.default_rng(args.seed)
+    shapes = [(args.d, args.d), (args.d_ff, args.d)]  # (d_out, d_in)
+    Ws = {sh: rng.normal(0, 0.05, sh) for sh in shapes}
+    res = {"launches": {}, "wrong": {}, "seconds": {}}
+    for frac in (6, 12):
+        runs = {}
+        for dev in ((DEVICE, "cpu") if frac == 6 else (DEVICE,)):
+            NTT.reset_launches()
+            t0 = time.perf_counter()
+            p = PiTProtocol(PrivacyConfig(frac_bits=frac), seed=args.seed,
+                            device=dev)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            out = {"init_s": time.perf_counter() - t0,
+                   "init_launches": launches(),
+                   "keys": [x.cpu() for x in (p.sk, *p.pk)]}
+            for sh in shapes:
+                NTT.reset_launches()
+                t0 = time.perf_counter()
+                corr = p.linear_offline(Ws[sh], (sh[1],), use_he_offline=True)
+                if dev == DEVICE:
+                    torch.cuda.synchronize()
+                wr = SS.add_mod(corr.client_y, corr.s_mask, p.t)
+                exact = SS.matmul_mod(corr.Wmod, corr.r1.reshape(-1, 1),
+                                      p.t).reshape(-1)
+                out[sh] = dict(seconds=time.perf_counter() - t0,
+                               launches=launches(), client_y=corr.client_y,
+                               wrong=int((wr != exact).sum()))
+            runs[dev] = out
+        card = runs[DEVICE]
+        tag = f"frac={frac}"
+        res["launches"][tag] = {"init": card["init_launches"], **{
+            f"{sh[1]}->{sh[0]}": card[sh]["launches"] for sh in shapes}}
+        res["wrong"][tag] = {f"{sh[1]}->{sh[0]}": card[sh]["wrong"]
+                             for sh in shapes}
+        res["seconds"][tag] = {"init": card["init_s"], **{
+            f"{sh[1]}->{sh[0]}": card[sh]["seconds"] for sh in shapes}}
+        assert card["init_launches"] > 0, "no NTT launch at protocol init"
+        if frac == 6:
+            cpu = runs["cpu"]
+            assert all(torch.equal(x, y) for x, y in
+                       zip(card["keys"], cpu["keys"])), "keys: cuda != cpu"
+            for sh in shapes:
+                assert card[sh]["wrong"] == 0, \
+                    f"HE linear {sh[1]}->{sh[0]} at frac 6 is not exact"
+                assert np.array_equal(card[sh]["client_y"],
+                                      cpu[sh]["client_y"]), \
+                    f"HE linear {sh[1]}->{sh[0]}: cuda != cpu"
+                assert card[sh]["launches"] > 0
+            res["seconds"]["cpu frac=6"] = {f"{sh[1]}->{sh[0]}":
+                                            cpu[sh]["seconds"]
+                                            for sh in shapes}
+            print(f"[he] frac 6: decrypted W·r1 == exact product mod t at "
+                  + ", ".join(f"{sh[1]}->{sh[0]}" for sh in shapes)
+                  + "; cuda == cpu bit-exact (keys and shares)")
+        print(f"[he] {tag}: protocol init {card['init_s']:.3f} s "
+              f"({card['init_launches']} NTT launches); linear_offline "
+              + "; ".join(f"{sh[1]}->{sh[0]} {card[sh]['seconds']:.3f} s, "
+                          f"{card[sh]['launches']} NTT launches, "
+                          f"{card[sh]['wrong']} of {sh[0]} outputs wrong"
+                          for sh in shapes))
+
+    # the steps one by one on the card, each ending in a synchronize;
+    # second of two repetitions (the first builds the NTT tables)
+    p = PiTProtocol(PrivacyConfig(frac_bits=6), seed=args.seed,
+                    device=DEVICE)
+    params = p.params
+    gen = torch.Generator().manual_seed(args.seed)
+    steps = {}
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for sh in shapes:
+        d_out, d_in = sh
+        Wq, _ = p.quantize_weight(Ws[sh])
+        r1 = rng.integers(0, params.t, d_in, dtype=np.uint64)
+        for _ in range(2):
+            (sk, pk), t_key = clock(lambda: HE.keygen(params, gen, DEVICE))
+            ct, t_enc = clock(lambda: HE.encrypt(
+                params, pk, HE.encode_coeffs(params, r1, DEVICE), gen))
+            outs, t_mv = clock(lambda: HE.he_matvec(params, ct, Wq))
+            _, t_dec = clock(lambda: HE.decrypt(
+                params, sk, outs, coeffs=HE.matvec_coeffs(params, d_in,
+                                                          d_out)))
+        steps[f"{d_in}->{d_out}"] = dict(
+            keygen_s=t_key, encrypt_s=t_enc, he_matvec_s=t_mv,
+            decrypt_s=t_dec, ciphertexts=int(outs[0].shape[1]))
+        print(f"[he] {d_in}->{d_out} on the card (warm): keygen {t_key:.4f} s,"
+              f" encrypt {t_enc:.4f} s, he_matvec {t_mv:.4f} s "
+              f"({outs[0].shape[1]} ciphertexts), decrypt {t_dec:.4f} s")
+    res["steps"] = steps
+    return res
 
 
 def phase_parity(args):
@@ -278,23 +613,30 @@ def phase_serve(args):
     from repro_torch import obs
     from repro_torch.config import BERT_BASE, PrivacyConfig
     from repro_torch.core.engine import PrivateTransformer, random_weights
+    from repro_torch.kernels.label_select import label_select as LS
     from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
     from repro_torch.serve import PrivateRequest, PrivateServeEngine
 
     S, d, dff = args.seq, args.d, args.d_ff
-    t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     ws = random_weights(rng, d, dff, args.layers)
-    model = PrivateTransformer(PrivacyConfig(), d, args.heads, dff, ws,
-                               seed=args.seed, activation=BERT_BASE.activation,
-                               device=DEVICE)
-    engine = PrivateServeEngine(model, buckets=(S,))
     xs = rng.normal(0, 1, (args.requests, S, d))
-    t_setup = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     tracer = obs.enable()
     try:
-        LE.reset_launches()
+        # zeroed before the model is built: its protocols (model and
+        # session) generate their HE keys through the NTT kernel
+        for mod in (LE, NTT, LS):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        model = PrivateTransformer(PrivacyConfig(), d, args.heads, dff, ws,
+                                   seed=args.seed,
+                                   activation=BERT_BASE.activation,
+                                   device=DEVICE)
+        engine = PrivateServeEngine(model, buckets=(S,))
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
         t0 = time.perf_counter()
         engine.preprocess(S, args.requests)
         torch.cuda.synchronize()
@@ -309,15 +651,17 @@ def phase_serve(args):
             t_req.append(time.perf_counter() - t0)
         t_on = sum(t_req)
         launches = {"eval_level": LE.eval_level.launches,
-                    "garble_level": LE.garble_level.launches}
+                    "garble_level": LE.garble_level.launches,
+                    "ntt": NTT.ntt_forward.launches
+                    + NTT.ntt_inverse.launches,
+                    "select_labels": LS.select_labels.launches}
     finally:
         obs.disable()
     st = engine.stats(S)
     ys = np.stack([r.result for r in done])
     assert ys.shape == (args.requests, S, d), ys.shape
     assert np.isfinite(ys).all(), "non-finite revealed outputs"
-    assert launches["eval_level"] > 0 and launches["garble_level"] > 0, \
-        launches
+    assert all(v > 0 for v in launches.values()), launches
     err = np.abs(ys - np.stack([model.forward_float(x) for x in xs]))
     garbled = st.gc_instances_ands  # metered per op as it is garbled
     evaluated = garbled * len(done) // args.requests
@@ -423,13 +767,16 @@ def main(argv=None) -> int:
     name, smi = phase_device()
     built = phase_build()
     krows, g_eval, g_garble = phase_kernels(args)
+    ntt_rows, ntt_err = phase_kernels_ntt(args)
+    hg_rows, ls_rows, gate_err = phase_kernels_gates(args, g_eval)
     parity = phase_parity(args)
+    gates = phase_gates(args, g_eval)
+    he = phase_he(args)
     serve, engine, x0 = phase_serve(args)
     prof = phase_profile(engine, x0, args.seq)
 
-    from repro_torch.kernels.level_eval import level_eval as LE
-
-    src = str(LE.SOURCE.relative_to(ROOT))
+    src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
+           for p in _sources()}
     kernels = []
     for kname, G, replaces in (
             ("eval_level", g_eval,
@@ -438,7 +785,7 @@ def main(argv=None) -> int:
              "src/repro/kernels/level_eval/level_eval.py:83")):
         row = krows[G][kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
+            "name": kname, "route": "cuda", "source": src["level_eval"],
             "replaces": replaces, "launches": serve["launches"][kname],
             "max_abs_err": max(r[kname]["max_abs_err"]
                                for r in krows.values()),
@@ -446,14 +793,48 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "G": G, "call_ms": row["call_ms"],
             "timing": row["timing"]})
+    fwd, inv = ntt_rows[0], ntt_rows[1]  # the HE primes at d->d rows
+    kernels.append({
+        "name": "ntt", "route": "cuda", "source": src["ntt"],
+        "replaces": "src/repro/kernels/ntt/ntt.py:89",
+        "launches": serve["launches"]["ntt"], "max_abs_err": ntt_err,
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": None, "rows": fwd["rows"], "n": fwd["n"],
+        "call_ms": fwd["call_ms"], "timing": fwd["timing"],
+        "inverse_ms": inv["ms"], "inverse_plain_ms": inv["plain_ms"],
+        "inverse_bound_ms": inv["bound_ms"],
+        "launches_he_phase": he["launches"]})
+    for row, replaces in ((hg_rows[0], "src/repro/kernels/halfgate/"
+                           "halfgate.py:64"),
+                          (hg_rows[1], "src/repro/kernels/halfgate/"
+                           "halfgate.py:95"),
+                          (ls_rows[0], "src/repro/kernels/label_select/"
+                           "label_select.py:37")):
+        kname = row["name"]
+        on_path = kname == "select_labels"
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src["label_select" if on_path else "halfgate"],
+            "replaces": replaces,
+            "launches": (serve["launches"] if on_path
+                         else gates["launches"])[kname],
+            "launches_from": "serving" if on_path else "gates",
+            "max_abs_err": gate_err[kname],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "G": row["G"], "call_ms": row["call_ms"],
+            "timing": row["timing"]})
     total = time.perf_counter() - t_all
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "device": name, "nvidia_smi": smi, "build": built,
             "kernels": {str(g): r for g, r in krows.items()},
-            "parity": parity, "serve": serve, "profile": prof,
-            "total_s": total}, indent=1,
+            "ntt": ntt_rows, "halfgate": hg_rows, "label_select": ls_rows,
+            "parity": parity, "gates": gates,
+            "he": he, "serve": serve,
+            "profile": prof, "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import labels as LB
 from repro_torch.core.gc_exec import get_executor
 from repro_torch.core.netlist import Netlist
+from repro_torch.kernels.label_select.label_select import select_labels
 
 I32 = torch.int32
 
@@ -129,10 +130,6 @@ def input_zeros(gc: GarbledCircuit, wire_ids: Sequence[int]) -> torch.Tensor:
     return gc.input_zero[:, _index(gc.input_positions(wire_ids), gc.device)]
 
 
-def _bits(bits, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(bits).astype(np.int32), device=device)
-
-
 def encode_inputs(gc: GarbledCircuit, wire_ids: Sequence[int], bits
                   ) -> torch.Tensor:
     """Active labels for given wires/bits. bits: (I, n) in {0,1}.
@@ -140,8 +137,7 @@ def encode_inputs(gc: GarbledCircuit, wire_ids: Sequence[int], bits
     This is the garbler-side encode (and what OT delivers for evaluator
     inputs). Returns (I, n, 4).
     """
-    return LB.maybe_xor(input_zeros(gc, wire_ids), _bits(bits, gc.device),
-                        gc.r[:, None, :])
+    return select_labels(input_zeros(gc, wire_ids), gc.r[:, None, :], bits)
 
 
 def const_wires_labels(gc: GarbledCircuit) -> Tuple[np.ndarray, torch.Tensor]:

@@ -41,9 +41,3 @@ def lsb(label: torch.Tensor) -> torch.Tensor:
     """Color bit, int32 {0,1}; label (..., 4) -> (...)."""
     return label[..., 0] & 1
 
-
-def maybe_xor(label: torch.Tensor, cond: torch.Tensor, offset: torch.Tensor
-              ) -> torch.Tensor:
-    """label ^ (cond ? offset : 0)."""
-    mask = (-(cond.to(I32)))[..., None]  # 0x0 or 0xFFFFFFFF
-    return label ^ (offset & mask)

@@ -18,9 +18,8 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import numpy as np
-import torch
 
-from repro_torch.core import labels as LB
+from repro_torch.kernels.label_select.label_select import select_labels
 
 
 @dataclass
@@ -71,11 +70,10 @@ def choose_labels(zero_labels, r, choice_bits):
     """The OT functionality itself: labels for the receiver's choice bits.
 
     zero_labels: (..., 4) int32 tensor; r: broadcastable; choice_bits
-    (...,) numpy or tensor bits. Pure label algebra (no metering).
+    (...,) numpy or tensor bits. Pure label algebra (no metering): on the
+    card, one launch of the label-select kernel.
     """
-    bits = torch.as_tensor(np.asarray(choice_bits).astype(np.int32),
-                           device=zero_labels.device)
-    return LB.maybe_xor(zero_labels, bits, r)
+    return select_labels(zero_labels, r, choice_bits)
 
 
 def ot_labels(channel: Channel, zero_labels, r, choice_bits, tag="ot"):

@@ -28,8 +28,10 @@ work on torch tensors: garbling labels come from the protocol's
 evaluation run on ``device``. Every numpy draw (shares, masks, ``r1``,
 Beaver triples) is made in the reference's order and every message is
 metered at the reference's sizes on wire v1 and v2, so a session with
-the same seed reveals the same outputs and ledgers. Homomorphic
-encryption itself (``use_he_offline``) waits for the port's HE slice.
+the same seed reveals the same outputs and ledgers. BFV key generation
+(at init) and the ``use_he_offline`` linear run on ``device`` through the
+port's NTT (``core/he.py``), with their own ``torch.Generator`` (see
+:func:`he_seed`), so the numpy draws stay in the reference's order.
 """
 
 from __future__ import annotations
@@ -234,6 +236,15 @@ class LayerNormCorrelation:
     in_scale: int = 0
 
 
+def he_seed(seed: int) -> int:
+    """Seed of a protocol's HE generator: derived from the protocol seed
+    without drawing from its numpy generator, and distinct from the label
+    generator's (which is ``seed`` itself), so the secret key's
+    randomness is not the garbling labels'."""
+    return int(np.random.SeedSequence([seed, 0x4845]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
 class PiTProtocol:
     def __init__(self, pcfg: PrivacyConfig, *, he_params: Optional[HE.BFVParams] = None,
                  seed: int = 0, device="cuda", wire_version: int = 1,
@@ -261,6 +272,9 @@ class PiTProtocol:
         #: offline garbling stream (IKNP + coalescing stay on when off)
         self.compression = compression
         self.stats = Stats()
+        #: HE randomness (keys, encryption noise), drawn on the host
+        self.he_gen = torch.Generator().manual_seed(he_seed(seed))
+        self.sk, self.pk = HE.keygen(self.params, self.he_gen, self.device)
         self._netlist_cache: Dict[str, Netlist] = {}
 
     @property
@@ -316,9 +330,21 @@ class PiTProtocol:
             ch = self.stats.channel_offline
             ch.c2s(ct_count * self._ct_bytes, "he-enc-r")
             if use_he_offline and r1.ndim == 1:
-                raise NotImplementedError(
-                    "use_he_offline needs BFV encryption and he_matvec, "
-                    "which come with the port's HE slice (ROADMAP: slice 2)")
+                p = self.params
+                ct_r = HE.encrypt(p, self.pk,
+                                  HE.encode_coeffs(p, r1, self.device),
+                                  self.he_gen)
+                outs = HE.he_matvec(p, ct_r, Wq)  # (k, blocks, n) pair
+                blocks = outs[0].shape[1]
+                self.stats.he_pt_muls += blocks
+                self.stats.he_encrypts += 1
+                # the client decrypts every product ciphertext but reads
+                # only the packed inner-product coefficients
+                polys = HE.decrypt(p, self.sk, outs,
+                                   coeffs=HE.matvec_coeffs(p, d_in, d_out))
+                self.stats.he_decrypts += blocks
+                wr = polys.reshape(-1)[:d_out]
+                ch.s2c(blocks * self._ct_bytes, "he-wr")
             else:
                 # metered-equivalent path (big matrices): same math mod t
                 wr = (SS.matmul_mod(Wmod, r1.reshape(-1, 1), self.t).reshape(-1)
@@ -351,6 +377,13 @@ class PiTProtocol:
                     server_y, np.broadcast_to(corr.bias_q, server_y.shape), self.t
                 )
         return corr.client_y, server_y  # scale 2·frac
+
+    def linear(self, W: np.ndarray, x_c, x_s, bias: Optional[np.ndarray] = None,
+               use_he_offline: bool = False):
+        """y = W x + b at scale 2·frac (compat wrapper: offline + online)."""
+        corr = self.linear_offline(W, x_c.shape, bias=bias,
+                                   use_he_offline=use_he_offline)
+        return self.linear_online(corr, x_c, x_s)
 
     # ------------------------------------------------------------------
     # Beaver matmul (private × private)

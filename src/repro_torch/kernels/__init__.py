@@ -1,13 +1,16 @@
-"""Hand-written CUDA kernels for the privacy plane's hot loop.
+"""Hand-written CUDA kernels of the port, one for each Pallas kernel of
+the JAX package, each with a plain PyTorch version beside it:
 
-Each kernel ships with a plain PyTorch version in the same package:
+  halfgate/ref.py          — the ARX Davies–Meyer hash and Half-Gate garble /
+                             eval in int32 torch (shared by every GC kernel)
+  csrc/halfgate.cuh        — the same cipher in CUDA, shared by the kernels
+  level_eval/              — garble / eval of one padded netlist level
+  halfgate/halfgate.py     — garble / eval of independent AND gates
+  label_select/            — active-label encoding W0 ^ (bit ? R : 0)
+  ntt/                     — negacyclic NTT and inverse for primes < 2^31
 
-  halfgate/ref.py       — the ARX Davies–Meyer hash and Half-Gate garble /
-                          eval in int32 torch (shared by every GC kernel)
-  level_eval/ref.py     — plain garble / eval of one padded netlist level
-  level_eval/level_eval.py + csrc/ — the CUDA kernels and their wrappers
-
-A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel (built with ``nvcc`` on first use, see
-:mod:`repro_torch.kernels.build`) or raises.
+Each package keeps its CUDA source under ``csrc/``. A wrapper given a CPU
+tensor runs the plain version; given a CUDA tensor it launches the kernel
+(built with ``nvcc`` on first use, see :mod:`repro_torch.kernels.build`)
+or raises.
 """

@@ -4,15 +4,18 @@ Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface. It is
 compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+         -Xcompiler -fPIC -Xptxas -v -I kernels/csrc
 
 into ``build/kernels/`` at the root of the checkout (``.gitignore`` lists
-it; ``REPRO_TORCH_BUILD_DIR`` overrides it). The library's file name
-carries a digest of its sources and flags, so an edited source is rebuilt
-and a finished build is reused by every later process. ``nvcc`` writes
-to a temporary name and the result is renamed into place, so processes
-that build at the same time do not see half-written files. ``ptxas``
-register and spill counts are kept beside the library as ``<name>.log``.
+it; ``REPRO_TORCH_BUILD_DIR`` overrides it). Headers shared by several
+kernels (the Half-Gate cipher) live in ``kernels/csrc/``. The library's
+file name carries a digest of the flags, the source and every file it
+``#include "..."``s, followed transitively, so a source whose header was
+edited is rebuilt and a finished build is reused by every later
+process. ``nvcc`` writes to a temporary name and the result is renamed
+into place, so processes that build at the same time do not see
+half-written files. ``ptxas`` register and spill counts are kept beside
+the library as ``<name>.log``.
 
 Building needs ``nvcc`` (``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin``);
 there is no fallback when it is missing.
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,8 +35,11 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+#: headers shared by the kernels of several packages
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 @dataclass
@@ -68,9 +75,30 @@ def nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def dependencies(source: Path) -> List[Path]:
+    """``source`` and every file it ``#include "..."``s, transitively;
+    a name resolves against the including file's folder, then
+    :data:`INCLUDE_DIR`, as ``nvcc`` resolves it."""
+    seen: Dict[Path, None] = {}
+    todo = [Path(source).resolve()]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen[f] = None
+        for name in _INCLUDE.findall(f.read_text()):
+            for d in (f.parent, INCLUDE_DIR):
+                if (d / name).is_file():
+                    todo.append((d / name).resolve())
+                    break
+            else:
+                raise FileNotFoundError(f"{f}: included {name!r} not found")
+    return list(seen)
+
+
 def _target(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(source.parent.glob("*.cu*")):
+    for f in dependencies(source):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return build_dir() / f"{source.stem}-{h.hexdigest()[:16]}.so"
@@ -82,7 +110,8 @@ def _start(source: Path):
         return out, None, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+           str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp, cmd), time.perf_counter()
@@ -138,3 +167,11 @@ def load(source: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
                 fn.argtypes = list(argtypes)
             _loaded[source] = lib
         return lib
+
+
+def raise_on(rc: int, fn: str, lib: ctypes.CDLL) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code (each
+    library exports ``error_string``)."""
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")

@@ -13,7 +13,7 @@ Half-Gate (Zahur–Rosulek–Evans, "two halves make a whole"):
   evaluation costs 2 hash calls.
 
 The CUDA kernels compute the same functions in
-``kernels/level_eval/csrc/halfgate.cuh``.
+``kernels/csrc/halfgate.cuh``.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Replaces the JAX package's Pallas kernels
 ``kernels/level_eval/level_eval.py:59`` (``eval_level_pallas``) and
 ``kernels/level_eval/level_eval.py:83`` (``garble_level_pallas``), with the
 same operands in the same ``(G, 4)`` layout. The kernels are in
-``csrc/level_eval.cu`` (hash in ``csrc/halfgate.cuh``); see that file for
-what bounds them on the H100 and how the design answers it.
+``csrc/level_eval.cu`` (hash in ``kernels/csrc/halfgate.cuh``); see that
+file for what bounds them on the H100 and how the design answers it.
 
 Wrapper rules:
 
@@ -29,11 +29,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, operands
 from repro_torch.kernels.level_eval import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "level_eval.cu"
@@ -62,41 +62,9 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(fn: str, words: Sequence[torch.Tensor],
-           labels: Sequence[torch.Tensor]) -> Tuple[torch.device, int]:
-    g = labels[0].shape[0]
-    dev = labels[0].device
-    for x in (*words, *labels):
-        if x.device != dev:
-            raise ValueError(f"{fn}: operands on {x.device} and {dev}")
-        if x.dtype != torch.int32:
-            raise TypeError(f"{fn}: operands must be int32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{fn}: operands must be contiguous")
-    for x in words:
-        if tuple(x.shape) != (g,):
-            raise ValueError(f"{fn}: expected ({g},), got {tuple(x.shape)}")
-    for x in labels:
-        if tuple(x.shape) != (g, 4):
-            raise ValueError(f"{fn}: expected ({g}, 4), got {tuple(x.shape)}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn}: unsupported device {dev}")
-    if dev.type == "cuda":
-        for x in labels:
-            if x.data_ptr() % 16:
-                raise ValueError(f"{fn}: labels must be 16-byte aligned")
-    return dev, g
-
-
-def _raise_on(rc: int, fn: str, lib: ctypes.CDLL) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc} "
-                           f"({lib.error_string(rc).decode()})")
-
-
 def eval_level(ops, a, b, tg, te, tweaks) -> torch.Tensor:
     """ops (G,); a/b/tg/te (G, 4); tweaks (G,), all int32. -> (G, 4)."""
-    dev, g = _check("eval_level", (ops, tweaks), (a, b, tg, te))
+    dev, g = operands.check("eval_level", (ops, tweaks), (a, b, tg, te))
     if dev.type == "cpu":
         return ref.eval_level(ops, a, b, tg, te, tweaks)
     lib = _lib()
@@ -106,7 +74,7 @@ def eval_level(ops, a, b, tg, te, tweaks) -> torch.Tensor:
                             tg.data_ptr(), te.data_ptr(), tweaks.data_ptr(),
                             out.data_ptr(), g,
                             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "eval_level", lib)
+    build.raise_on(rc, "eval_level", lib)
     if g:
         eval_level.launches += 1
     return out
@@ -125,9 +93,9 @@ def garble_level(ops, a0, b0, r, tweaks,
     (G, 4) tensors to write into (the executor points the table rows
     straight into its packed table store).
     """
-    dev, g = _check("garble_level", (ops, tweaks), (a0, b0, r))
+    dev, g = operands.check("garble_level", (ops, tweaks), (a0, b0, r))
     if out is not None:
-        _check("garble_level", (), tuple(out))
+        operands.check("garble_level", (), tuple(out))
         if any(o.shape[0] != g or o.device != dev for o in out):
             raise ValueError("garble_level: out must be three (G, 4) "
                              "tensors on the operands' device")
@@ -146,7 +114,7 @@ def garble_level(ops, a0, b0, r, tweaks,
                               r.data_ptr(), tweaks.data_ptr(), c0.data_ptr(),
                               tg.data_ptr(), te.data_ptr(), g,
                               torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "garble_level", lib)
+    build.raise_on(rc, "garble_level", lib)
     if g:
         garble_level.launches += 1
     return c0, tg, te

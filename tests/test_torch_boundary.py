@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, and no module of it (nor ``chip_smoke.py``, which drives it
-on the card) imports either."""
+JAX package, and no module of it (nor ``chip_smoke.py`` and
+``chip_serve_ab.py``, which drive it on the card) imports either."""
 
 import ast
 import json
@@ -49,9 +49,10 @@ def _imports(tree):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", MODULES + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", MODULES + [ROOT / "chip_smoke.py",
+                                            ROOT / "chip_serve_ab.py"],
                          ids=[_module_name(p) for p in MODULES]
-                         + ["chip_smoke"])
+                         + ["chip_smoke", "chip_serve_ab"])
 def test_module_imports_neither_jax_nor_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imports(tree)

@@ -88,3 +88,106 @@ def test_executor_on_card_matches_cpu(cuda, instances):
         outs.append([t.cpu() for t in (gc.input_zero, gc.tables,
                                        gc.output_perm, out)])
     assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# NTT, label select and Half-Gate gate kernels; HE on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.config import PrivacyConfig  # noqa: E402
+from repro_torch.core.protocol import PiTProtocol  # noqa: E402
+from repro_torch.kernels.halfgate import halfgate as HK  # noqa: E402
+from repro_torch.kernels.halfgate import ref as HR  # noqa: E402
+from repro_torch.kernels.label_select import label_select as LS  # noqa: E402
+from repro_torch.kernels.label_select import ref as LR  # noqa: E402
+from repro_torch.kernels.ntt import ntt as NTT  # noqa: E402
+from repro_torch.kernels.ntt import ref as NR  # noqa: E402
+
+
+@pytest.mark.parametrize("n,rows", [(8, 5), (256, 3), (2048, 7), (8192, 2)])
+def test_ntt_kernel_matches_plain_version(cuda, n, rows):
+    qs = NR.find_ntt_primes(30, 3, n)
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(np.stack([rng.integers(0, q, (rows, n)) for q in qs]))
+    cases = [(qs, a)]
+    if n <= 2048:  # no prime = 1 mod 2N below 46340 for larger N
+        limb = NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]
+        cases.append((limb, a[0] % limb))
+    NTT.reset_launches()
+    for q, x in cases:
+        d = x.to(cuda)
+        f = NTT.ntt_forward(d, q)
+        i = NTT.ntt_inverse(d, q)
+        torch.cuda.synchronize()
+        assert torch.equal(f.cpu(), NR.ntt_forward(x, q))
+        assert torch.equal(i.cpu(), NR.ntt_inverse(x, q))
+        assert torch.equal(NTT.ntt_inverse(f, q).cpu(), x)
+    assert (NTT.ntt_forward.launches, NTT.ntt_inverse.launches) == \
+        (len(cases), 2 * len(cases))
+
+
+def test_ntt_wrapper_refusals(cuda):
+    q = NR.find_ntt_primes(30, 1, 256)[0]
+    x = torch.zeros((4, 256), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int64"):
+        NTT.ntt_forward(x.int(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        NTT.ntt_forward(x.t().contiguous().t(), q)
+    with pytest.raises(ValueError, match="power of two"):
+        NTT.ntt_forward(torch.zeros((1, 16384), dtype=torch.int64,
+                                    device=cuda), q)
+    with pytest.raises(ValueError, match="2\\^31"):
+        NTT.ntt_forward(x, 2 ** 31 + 513)
+
+
+@pytest.mark.parametrize("lead,r_lead", [((4097,), (4097,)), ((3, 1001), (3, 1)),
+                                         ((5, 7), (1, 1))])
+def test_label_select_kernel_matches_plain_version(cuda, lead, r_lead):
+    gen = torch.Generator().manual_seed(sum(lead))
+    words = lambda *s: torch.randint(-(1 << 31), 1 << 31, s,  # noqa: E731
+                                     dtype=torch.int32, generator=gen)
+    w0, r = words(*lead, 4), words(*r_lead, 4)
+    bits = torch.randint(0, 2, lead, generator=gen)
+    LS.reset_launches()
+    got = LS.select_labels(w0.to(cuda), r.to(cuda), bits.numpy())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), LR.select_labels(w0, r, bits))
+    assert LS.select_labels.launches == 1
+
+
+def test_label_select_refuses_misaligned(cuda):
+    w = torch.zeros(40, dtype=torch.int32, device=cuda)[1:33].view(8, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        LS.select_labels(w, w, np.zeros(8))
+
+
+@pytest.mark.parametrize("g", [1, 3001, 196_608 + 5])
+def test_halfgate_gate_kernels_match_plain_version(cuda, g):
+    _, a, b, tg, te, r, tw = _operands(g, seed=g + 1)
+    HK.reset_launches()
+    d = [x.to(cuda) for x in (a, b, tg, te, r, tw)]
+    gg = HK.garble_gates(d[0], d[1], d[4], d[5])
+    ev = HK.eval_gates(d[0], d[1], d[2], d[3], d[5])
+    torch.cuda.synchronize()
+    for x, y in zip(gg, HR.garble_and_gates(a, b, r, tw)):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(ev.cpu(), HR.eval_and_gates(a, b, tg, te, tw))
+    assert (HK.garble_gates.launches, HK.eval_gates.launches) == (1, 1)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 48), (768, 5)])
+def test_he_linear_offline_on_card_matches_cpu(cuda, d_in, d_out):
+    W = np.random.default_rng(d_in).normal(0, 0.05, (d_out, d_in))
+    res = []
+    for dev in (cuda, "cpu"):
+        p = PiTProtocol(PrivacyConfig(frac_bits=6), seed=3, device=dev)
+        NTT.reset_launches()
+        corr = p.linear_offline(W, (d_in,), use_he_offline=True)
+        launches = NTT.ntt_forward.launches + NTT.ntt_inverse.launches
+        assert launches == (6 if dev == cuda else 0)  # enc, matvec, dec
+        res.append((p.sk.cpu(), *(x.cpu() for x in p.pk), corr.client_y,
+                    corr.r1, corr.s_mask, p.stats.comm_snapshot()))
+    k, c = res
+    assert all(torch.equal(x, y) for x, y in zip(k[:3], c[:3]))
+    assert all(np.array_equal(x, y) for x, y in zip(k[3:6], c[3:6]))
+    assert k[6] == c[6]

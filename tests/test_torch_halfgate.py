@@ -83,3 +83,60 @@ def test_as_i32_round_trips_constants():
         v = HT.as_i32(c)
         assert -(1 << 31) <= v < (1 << 31)
         assert np.array([v], np.int32).view(np.uint32)[0] == c
+
+
+# ---------------------------------------------------------------------------
+# the entry points (repro_torch.kernels.halfgate) against the Pallas
+# kernels in interpret mode and their dispatch
+# ---------------------------------------------------------------------------
+
+from repro.kernels.halfgate import ops as HO  # noqa: E402
+from repro.kernels.halfgate.halfgate import eval_pallas, garble_pallas  # noqa: E402
+from repro_torch.kernels import halfgate as HP  # noqa: E402
+from repro_torch.kernels.halfgate import halfgate as HK  # noqa: E402
+
+
+@pytest.mark.parametrize("g", [1, 777, 2049])
+def test_gate_kernels_match_pallas(blocks, g):
+    a, b, tg, te, tw = (blocks[k][:g] for k in ("a", "b", "tg", "te", "tw"))
+    r = np.broadcast_to(blocks["r"], (g, 4)).copy()
+    want = garble_pallas(*(jnp.asarray(x) for x in (a, b, r, tw)),
+                         interpret=True)
+    got = HK.garble_gates(_t(a), _t(b), _t(r), _t(tw))
+    assert all(np.array_equal(_u(x), np.asarray(y)) for x, y in zip(got, want))
+    want = eval_pallas(*(jnp.asarray(x) for x in (a, b, tg, te, tw)),
+                       interpret=True)
+    got = HK.eval_gates(_t(a), _t(b), _t(tg), _t(te), _t(tw))
+    assert np.array_equal(_u(got), np.asarray(want))
+
+
+def test_entry_points_broadcast_as_the_dispatch_does(blocks):
+    lead = (10, 50)
+    a, b, tg, te = (blocks[k][:500].reshape(*lead, 4)
+                    for k in ("a", "b", "tg", "te"))
+    r = blocks["r"].reshape(1, 1, 4)  # one R for every gate
+    tw = blocks["tw"][:50]  # one tweak per column, broadcast over rows
+    want = HO.garble_and_gates(*(jnp.asarray(x) for x in (a, b, r, tw)),
+                               impl="pallas_interpret")
+    got = HP.garble_and_gates(_t(a), _t(b), _t(r), _t(tw))
+    assert all(x.shape == (*lead, 4) for x in got)
+    assert all(np.array_equal(_u(x), np.asarray(y)) for x, y in zip(got, want))
+    want = HO.eval_and_gates(*(jnp.asarray(x) for x in (a, b, tg, te, tw)),
+                             impl="pallas_interpret")
+    got = HP.eval_and_gates(_t(a), _t(b), _t(tg), _t(te), _t(tw))
+    assert np.array_equal(_u(got), np.asarray(want))
+    assert np.array_equal(
+        _u(HP.hash_labels(_t(a), _t(tw))),
+        np.asarray(HO.hash_labels(jnp.asarray(a), jnp.asarray(tw))))
+
+
+def test_gate_wrappers_refuse_wrong_operands(blocks):
+    a = _t(blocks["a"][:8])
+    tw = _t(blocks["tw"][:8])
+    with pytest.raises(TypeError, match="int32"):
+        HK.eval_gates(a.long(), a, a, a, tw)
+    with pytest.raises(ValueError, match="expected \\(8,\\)"):
+        HK.garble_gates(a, a, a, tw[:7])
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.eval_gates(a, a, a, a, _t(blocks["tw"][:16])[::2])
+    assert (HK.garble_gates.launches, HK.eval_gates.launches) == (0, 0)
