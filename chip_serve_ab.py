@@ -4,12 +4,15 @@
     python3 chip_serve_ab.py BASE_DIR CHANGE_DIR [--pairs 2] [--json PATH]
 
 Runs ``chip_smoke.py``'s serving phase (BERT-base width, 1 layer, S=8,
-2 bundles, 2 requests) from each checkout in turn, one process per run,
-in the order base, change, change, base, repeated ``--pairs`` / 2 times,
-so both sides see the same card and host. Each run builds its own
-kernels in its checkout. Prints one line per run and a JSON summary
-(offline seconds, seconds per request, launches, span totals) as the
-last line; ``--json`` also writes it to a file. Needs a CUDA device.
+2 bundles, 2 requests) and then its profile phase (one more warm request
+under ``torch.profiler``: the device's busy share) from each checkout in
+turn, one process per run, in the order base, change, change, base,
+repeated ``--pairs`` / 2 times, so both sides see the same card and
+host. Each run builds its own kernels in its checkout. Prints one line
+per run and a JSON summary (offline seconds, seconds per request, the
+profiled request's wall time and busy share, launches, span totals) as
+the last line; ``--json`` also writes it to a file. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -26,9 +29,12 @@ sys.path.insert(0, {src!r}); sys.path.insert(0, {tree!r})
 import chip_smoke as C
 args = argparse.Namespace(layers=1, seq=8, requests=2, d=768, heads=12,
                           d_ff=3072, seed=0, json=None)
-res, _, _ = C.phase_serve(args)
-print("AB " + json.dumps({{k: res[k] for k in (
-    "offline_s", "online_s_per_request", "launches", "spans_s")}}))
+res, engine, x0 = C.phase_serve(args)
+prof = C.phase_profile(engine, x0, args.seq) or {{}}
+print("AB " + json.dumps(dict({{k: res[k] for k in (
+    "offline_s", "online_s_per_request", "launches", "spans_s")}},
+    profile={{k: prof.get(k) for k in ("wall_s", "device_busy_s",
+                                     "busy_share")}})))
 """
 
 
@@ -70,9 +76,13 @@ def main(argv=None) -> int:
     for side in order:
         r = dict(side=side, **run(trees[side], args.timeout))
         runs.append(r)
+        p = r["profile"]
+        busy = ("not measured" if p["busy_share"] is None else
+                f"{p['wall_s']:.2f} s, busy {100 * p['busy_share']:.2f}%")
         print(f"[ab] {side}: offline {r['offline_s']:.2f} s, requests "
               + ", ".join(f"{t:.2f}" for t in r["online_s_per_request"])
-              + f" s; launches {r['launches']}", flush=True)
+              + f" s; profiled request {busy}; launches {r['launches']}",
+              flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -82,8 +92,8 @@ def main(argv=None) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(summary, indent=1))
     print(json.dumps({"device": smi, "runs": [
-        {k: r[k] for k in ("side", "offline_s", "online_s_per_request")}
-        for r in runs]}))
+        {k: r[k] for k in ("side", "offline_s", "online_s_per_request",
+                           "profile")} for r in runs]}))
     return 0
 
 

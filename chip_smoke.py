@@ -7,8 +7,9 @@ Phases, each asserting (any failure exits non-zero and prints no result):
 
 1. device   — the card's name and its ``nvidia-smi`` name/power-limit line;
 2. build    — ``nvcc`` builds every kernel source of the port from the
-              checkout (``sm_90a``), all sources at once: the level kernels,
-              the NTT, label select and the Half-Gate gate kernels;
+              checkout (``sm_90a``), all sources at once: the level and
+              walk kernels, the NTT, label select and the Half-Gate gate
+              kernels;
 3. kernels  — each kernel's wrapper on CUDA tensors at the shapes its path
               gives it, plus a ragged size, against its plain PyTorch
               version on the same inputs: bit-exact; kernel time (device
@@ -19,8 +20,10 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               on ``cuda`` against the same on ``cpu``: bit-exact;
 5. gates    — the Half-Gate entry points (``garble_and_gates`` →
               ``select_labels`` → ``eval_and_gates``) on G independent AND
-              gates: every output decodes to a AND b; launch counters zeroed
-              just before and read just after;
+              gates, and one padded level of mixed gates through
+              ``garble_level`` → ``select_labels`` → ``eval_level``: every
+              output decodes to its gate of the inputs; launch counters
+              zeroed just before and read just after;
 6. he       — ``PiTProtocol(PrivacyConfig(frac_bits=6))`` key generation
               and ``linear_offline(use_he_offline=True)`` at BERT-base
               widths (768→768, 768→3072): the decrypted W·r1 equals the
@@ -35,13 +38,19 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               are cut only to fit the time limit (``--layers``, ``--seq``).
               The launch counters are zeroed just before the model is built
               (its protocols generate HE keys) and read just after the last
-              request; every kernel of the path (level garble/eval, NTT,
-              label select) must have launched.
-8. profile  — one more request on the same engine under ``torch.profiler``
+              request; every kernel of the path (the walk kernels, NTT,
+              label select) must have launched, the walk kernels once per
+              ``gc_exec`` walk, and the per-chunk level kernels not at all;
+8. walks    — each walk kernel against its plain walk, bit for bit, on
+              every level plan serving compiled (softmax8, trunc, GeLU,
+              LayerNorm; both sides), from random stores and tables: the
+              kernel's time per walk, µs per chunk, the plain walk's time
+              and the roofline bound beside the chain of n_chunks steps;
+9. profile  — one more request on the same engine under ``torch.profiler``
               (after the counters are read): device time by kernel and the
               device's busy share of that request's wall time.
 
-The line before the last is the ``kernels`` JSON summary of all six
+The line before the last is the ``kernels`` JSON summary of all eight
 kernels; the last line is ``{"ok": true, "device": {...}}``. ``--json
 PATH`` also writes every measurement (per-shape kernel times, phase times,
 span totals) to PATH. Needs ``torch`` with CUDA and ``nvcc``; there is no
@@ -403,6 +412,7 @@ def phase_gates(args, gates):
     from repro_torch.kernels.halfgate import halfgate as HK
     from repro_torch.kernels.label_select import label_select as LS
     from repro_torch.kernels.label_select import select_labels
+    from repro_torch.kernels.level_eval import level_eval as LE
 
     gen = torch.Generator().manual_seed(args.seed + 2)
     words = lambda *s: torch.randint(  # noqa: E731
@@ -412,26 +422,42 @@ def phase_gates(args, gates):
     tw = torch.arange(gates, dtype=torch.int32)
     abits = torch.randint(0, 2, (gates,), generator=gen)
     bbits = torch.randint(0, 2, (gates,), generator=gen)
-    a0, b0, r, tw, abits, bbits = (x.to(DEVICE) for x in
-                                   (a0, b0, r, tw, abits, bbits))
+    # one padded level: XOR, AND, INV and PAD lanes (ops 0..3)
+    ops = torch.randint(0, 4, (gates,), generator=gen, dtype=torch.int32)
+    a0, b0, r, tw, abits, bbits, ops = (x.to(DEVICE) for x in
+                                        (a0, b0, r, tw, abits, bbits, ops))
+    r_g = r.expand(gates, 4).contiguous()
     HK.reset_launches()
     LS.reset_launches()
+    LE.reset_launches()
     t0 = time.perf_counter()
     c0, tg, te = HP.garble_and_gates(a0, b0, r, tw)
     a = select_labels(a0, r, abits)
     b = select_labels(b0, r, bbits)
     c = HP.eval_and_gates(a, b, tg, te, tw)
+    l0, ltg, lte = LE.garble_level(ops, a0, b0, r_g, tw)
+    lc = LE.eval_level(ops, a, b, ltg, lte, tw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"garble_and": HK.garble_gates.launches,
                 "eval_and": HK.eval_gates.launches,
-                "select_labels": LS.select_labels.launches}
+                "select_labels": LS.select_labels.launches,
+                "garble_level": LE.garble_level.launches,
+                "eval_level": LE.eval_level.launches}
     # the output label encodes a AND b: c == c0 ^ (R if a & b)
     want = c0 ^ (r & -(abits & bbits).to(torch.int32)[:, None])
     assert torch.equal(c, want), "Half-Gate outputs do not decode to a & b"
+    # a level's output label encodes op(a, b): XOR, AND, NOT a, and 0 on
+    # pads (whose labels are zero on both sides)
+    bit = torch.where(ops == 0, abits ^ bbits, torch.where(
+        ops == 1, abits & bbits, torch.where(ops == 2, 1 - abits,
+                                             torch.zeros_like(abits))))
+    want = l0 ^ (r & -bit.to(torch.int32)[:, None])
+    assert torch.equal(lc, want), "level outputs do not decode to op(a, b)"
     assert all(v > 0 for v in launches.values()), launches
     print(f"[gates] {gates:,} AND gates garbled, labels chosen, evaluated "
-          f"and decoded to a & b through the entry points ({secs:.3f} s); "
+          f"and decoded to a & b through the entry points, and a level of "
+          f"{gates:,} mixed gates to op(a, b) ({secs:.3f} s); "
           f"launches {launches}")
     return {"G": gates, "seconds": secs, "launches": launches}
 
@@ -650,11 +676,13 @@ def phase_serve(args):
             torch.cuda.synchronize()
             t_req.append(time.perf_counter() - t0)
         t_on = sum(t_req)
-        launches = {"eval_level": LE.eval_level.launches,
-                    "garble_level": LE.garble_level.launches,
+        launches = {"eval_walk": LE.eval_walk.launches,
+                    "garble_walk": LE.garble_walk.launches,
                     "ntt": NTT.ntt_forward.launches
                     + NTT.ntt_inverse.launches,
                     "select_labels": LS.select_labels.launches}
+        chunk_launches = {"eval_level": LE.eval_level.launches,
+                          "garble_level": LE.garble_level.launches}
     finally:
         obs.disable()
     st = engine.stats(S)
@@ -662,10 +690,17 @@ def phase_serve(args):
     assert ys.shape == (args.requests, S, d), ys.shape
     assert np.isfinite(ys).all(), "non-finite revealed outputs"
     assert all(v > 0 for v in launches.values()), launches
+    report = tracer.report()
+    walks = {side: sum(v["count"] for k, v in report.items()
+                       if k.split("/")[-1] == f"gc_exec.{side}")
+             for side in ("evaluate", "garble")}
+    # one walk kernel launch per executor walk, no per-chunk kernel
+    assert (launches["eval_walk"], launches["garble_walk"]) == \
+        (walks["evaluate"], walks["garble"]), (launches, walks)
+    assert not any(chunk_launches.values()), chunk_launches
     err = np.abs(ys - np.stack([model.forward_float(x) for x in xs]))
     garbled = st.gc_instances_ands  # metered per op as it is garbled
     evaluated = garbled * len(done) // args.requests
-    report = tracer.report()
     spans = {k: v["total_s"] for k, v in report.items()}
     res = {
         "config": dict(d=d, heads=args.heads, d_ff=dff, layers=args.layers,
@@ -679,7 +714,8 @@ def phase_serve(args):
         "and_gates_evaluated": int(evaluated),
         "per_fn": st.per_fn,
         "err_max": float(err.max()), "err_mean": float(err.mean()),
-        "launches": launches,
+        "launches": launches, "walks": walks,
+        "level_launches": chunk_launches,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "spans_s": spans,
     }
@@ -691,7 +727,9 @@ def phase_serve(args):
           + ", ".join(f"{t:.2f}" for t in t_req)
           + f" s), setup {t_setup:.2f} s")
     print(f"[serve] AND gates garbled {garbled:,} / evaluated {evaluated:,}; "
-          f"launches {launches}; peak device memory "
+          f"launches {launches} ({walks['evaluate']} evaluate and "
+          f"{walks['garble']} garble walks; per-chunk level kernels "
+          f"{chunk_launches}); peak device memory "
           f"{res['peak_device_gb']:.2f} GB")
     print(f"[serve] |priv - float| max {res['err_max']:.4g} mean "
           f"{res['err_mean']:.4g} (reference tests' bounds at small width: "
@@ -699,6 +737,116 @@ def phase_serve(args):
     top = sorted(spans.items(), key=lambda kv: -kv[1])[:12]
     print("[serve] spans (s): " + "; ".join(f"{k} {v:.2f}" for k, v in top))
     return res, engine, xs[0]
+
+
+def _serving_executors(engine):
+    """Every level executor that serving built on the card, from the
+    sessions' protocols' netlist caches (plans hang off the netlists;
+    executors are keyed by device string, ``cuda`` or ``cuda:0``)."""
+    import torch
+
+    seen = {}
+    for sess in engine._sessions.values():
+        for net in sess.protocol._netlist_cache.values():
+            for plan in getattr(net, "_level_plans", {}).values():
+                for exe in plan._executors.values():
+                    if exe.device.type == torch.device(DEVICE).type:
+                        seen[id(exe)] = exe
+    return list(seen.values())
+
+
+def _walk_bound(exe, garble):
+    """Least time of one walk: its records, source labels, tables (read on
+    evaluate, written on garble), R and output labels, each moved once,
+    against its Half-Gates (``EVAL_OPS`` / ``GARBLE_OPS`` per real AND
+    gate and instance)."""
+    from repro_torch.kernels.level_eval import level_eval as LE
+
+    plan, I = exe.plan, exe.instances
+    meta = exe._garble_meta if garble else exe._eval_meta
+    nbytes = (meta.records.numel() * 4 + len(plan.source_ids) * I * 16
+              + plan.n_and * I * 32 + len(plan.out_rows) * I * 16
+              + (I * 16 if garble else 0))
+    nops = plan.n_and * I * (LE.GARBLE_OPS if garble else LE.EVAL_OPS)
+    return _bound(nbytes, nops)
+
+
+def phase_walks(engine, args):
+    """Each walk kernel against its plain walk on the plans serving
+    compiled, bit for bit, from a random store (R row set on garble) and
+    random tables; kernel and plain times per walk, by CUDA events (a
+    walk is one launch of milliseconds: the events' overhead is
+    microseconds). The plain walk is timed on its one run, the one
+    compared."""
+    import torch
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.level_eval import ref
+
+    gen = torch.Generator().manual_seed(args.seed + 3)
+    rows = []
+    for exe in sorted(_serving_executors(engine),
+                      key=lambda e: (e.plan._net.name, e.instances)):
+        plan, I = exe.plan, exe.instances
+        for garble in (False, True):
+            if not (exe.n_garble_calls if garble else exe.n_eval_calls):
+                continue
+            meta = exe._garble_meta if garble else exe._eval_meta
+
+            def words(*shape):
+                return torch.randint(-(1 << 31), 1 << 31, shape,
+                                     dtype=torch.int32, generator=gen
+                                     ).to(DEVICE)
+
+            store = words(meta.store_rows, I, 4)
+            r = words(I, 4)
+            r[:, 0] |= 1
+            store[-1] = r
+            tabs = [words(meta.table_rows, I, 4) for _ in range(2)]
+            # the kernel walks copies; the plain walk the originals
+            out = [store.clone(), *(t.clone() for t in tabs)]
+            if garble:
+                def kern():
+                    LE.garble_walk(meta, out[0], r, *out[1:])
+
+                def plain():
+                    ref.garble_walk(meta, store, r, *tabs)
+            else:
+                def kern():
+                    LE.eval_walk(meta, *out)
+
+                def plain():
+                    ref.eval_walk(meta, store, *tabs)
+            kern()
+            plain_ms = _ms_events(plain, 1)
+            e = _max_abs_diff(out, [store, *tabs])
+            assert e == 0, (f"{'garble' if garble else 'eval'}_walk != plain"
+                            f" walk on {plan._net.name} I={I}: {e}")
+            name = "garble_walk" if garble else "eval_walk"
+            ms = _ms_events(kern, 3)
+            t = dict(ms=ms, timing="events", call_ms=ms, plain_ms=plain_ms)
+            bound, by = _walk_bound(exe, garble)
+            shape = LE.walk_shape(meta.and_width, meta.free_width,
+                                  meta.stride, I)
+            rows.append(dict(
+                name=name, netlist=plan._net.name, instances=I,
+                widths=[plan.and_width, plan.free_width],
+                chunks=plan.n_chunks, and_gates=plan.n_and,
+                walks_per_run=(exe.n_garble_calls if garble
+                               else exe.n_eval_calls),
+                tile=shape.tile, cluster=shape.cluster, max_abs_err=e,
+                **t, us_per_chunk=1e3 * t["ms"] / plan.n_chunks,
+                bound_ms=bound, bound_by=by))
+            del store, tabs, out
+            torch.cuda.empty_cache()
+    for r in rows:
+        print(f"[walks] {r['name']} {r['netlist']} I={r['instances']} "
+              f"({r['chunks']} chunks of {r['widths']}, tile {r['tile']} x "
+              f"cluster {r['cluster']}): bit-exact; {r['ms']:.3f} ms "
+              f"({r['us_per_chunk']:.2f} us/chunk; plain {r['plain_ms']:.1f}"
+              f" ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
+              f"{r['walks_per_run']} walks in serving)")
+    assert {r["name"] for r in rows} == {"eval_walk", "garble_walk"}, rows
+    return rows
 
 
 def phase_profile(engine, x, seq):
@@ -773,6 +921,7 @@ def main(argv=None) -> int:
     gates = phase_gates(args, g_eval)
     he = phase_he(args)
     serve, engine, x0 = phase_serve(args)
+    walks = phase_walks(engine, args)
     prof = phase_profile(engine, x0, args.seq)
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
@@ -786,13 +935,37 @@ def main(argv=None) -> int:
         row = krows[G][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src["level_eval"],
-            "replaces": replaces, "launches": serve["launches"][kname],
+            "replaces": replaces, "launches": gates["launches"][kname],
+            "launches_from": "gates",
+            "launches_serving": serve["level_launches"][kname],
             "max_abs_err": max(r[kname]["max_abs_err"]
                                for r in krows.values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "G": G, "call_ms": row["call_ms"],
             "timing": row["timing"]})
+    # the walk kernels: the serving walk with the most chunks, per side
+    # (softmax8), beside every serving walk under "walks"
+    for kname, replaces in (
+            ("eval_walk", "src/repro/kernels/level_eval/level_eval.py:59"),
+            ("garble_walk", "src/repro/kernels/level_eval/level_eval.py:83")):
+        mine = [r for r in walks if r["name"] == kname]
+        row = max(mine, key=lambda r: r["chunks"])
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src["level_eval"],
+            "replaces": replaces, "launches": serve["launches"][kname],
+            "launches_from": "serving",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "netlist": row["netlist"],
+            "instances": row["instances"], "chunks": row["chunks"],
+            "us_per_chunk": row["us_per_chunk"], "call_ms": row["call_ms"],
+            "timing": row["timing"],
+            "walks": [{k: r[k] for k in ("netlist", "instances", "chunks",
+                                         "ms", "us_per_chunk", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "walks_per_run")} for r in mine]})
     fwd, inv = ntt_rows[0], ntt_rows[1]  # the HE primes at d->d rows
     kernels.append({
         "name": "ntt", "route": "cuda", "source": src["ntt"],
@@ -833,7 +1006,7 @@ def main(argv=None) -> int:
             "kernels": {str(g): r for g, r in krows.items()},
             "ntt": ntt_rows, "halfgate": hg_rows, "label_select": ls_rows,
             "parity": parity, "gates": gates,
-            "he": he, "serve": serve,
+            "he": he, "serve": serve, "walks": walks,
             "profile": prof, "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")

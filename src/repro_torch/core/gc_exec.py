@@ -3,33 +3,37 @@
 The executor walks the fixed-shape *chunks* of a
 :class:`~repro_torch.core.netlist.LevelPlan` (the same plan, built by the
 same ``compile_level_plan``, as the JAX package's executor) over a wire
-store that lives on the executor's device. Per chunk it
+store ``(n_rows + 1, I, 4)`` that lives on the executor's device. Per
+chunk the walk
 
-* gathers the chunk's ``[a | b | fa | fb]`` input rows with ONE
-  ``index_select`` of the row-major ``(n_rows + 1, I, 4)`` store;
-* runs the AND block through the level kernel
-  (:mod:`repro_torch.kernels.level_eval.level_eval`): ``garble_level``
-  offline, ``eval_level`` online, on the ``(and_width * I, 4)`` lanes;
-* computes the free block as one XOR ``fa ^ fb``. INV lanes read the zero
-  dummy row as their second input, so on evaluate they pass ``a``
-  through; on garble their second input is redirected to an extra store
-  row that holds R, so the same XOR yields ``a0 ^ R``;
+* gathers the chunk's ``[a | b | fa | fb]`` input rows;
+* runs the AND lanes through the Half-Gate (evaluate online, garble
+  offline, writing the table rows at the plan's ``table_base``);
+* computes the free lanes as ``fa ^ fb``. INV lanes read the zero dummy
+  row as their second input, so on evaluate they pass ``a`` through; on
+  garble their second input is redirected to an extra store row that
+  holds R, so the same XOR yields ``a0 ^ R``;
 * commits the chunk's outputs to the rows the plan's ``perm`` puts them
-  at (``base + argsort(perm)``) with two ``index_copy_`` calls.
+  at (``base + argsort(perm)``), after every gather of the chunk.
 
-Garble writes the Half-Gate table rows straight into packed table stores
-at the plan's ``table_base`` (the kernel's ``out=``) and returns them in
-dense AND-slot order ``(I, nAND, 2, 4)``, with the input zero-labels and
-the output colour bits, plus every wire's zero-label on a
-``compact=False`` plan (``keep_wires``).
+``__init__`` packs, once per executor, one int32 record per chunk and
+side (:class:`~repro_torch.kernels.level_eval.ref.WalkMeta`: gather rows,
+commit rows, tweaks, ops, table slots or ``table_base``), and each walk
+is ONE call of ``eval_walk`` / ``garble_walk``
+(:mod:`repro_torch.kernels.level_eval.level_eval`): on the card one
+kernel launch that walks every chunk, on the CPU the plain walk over the
+same records. Around it stay a few PyTorch calls per walk: the store's
+set-up, the table transposes and the output gathers.
+
+Garble returns the tables in dense AND-slot order ``(I, nAND, 2, 4)``,
+with the input zero-labels and the output colour bits, plus every wire's
+zero-label on a ``compact=False`` plan (``keep_wires``).
 
 One row-major store serves both instance regimes. The JAX package's
 planar store, split hashes and prefetch were workarounds for XLA on the
 CPU; the results here are bit-identical to its executor given the same
 ``(src_labels, R)`` — which is what ``tests/test_torch_gc_exec.py`` holds
-the port to — not its structure. Every chunk still costs a handful of
-PyTorch launches plus one kernel launch (folding the walk into fewer
-launches is later work; see ``PERF.md``).
+the port to — not its structure.
 
 ``n_eval_calls`` / ``n_garble_calls`` count invocations; the
 ``gc_exec.evaluate`` / ``gc_exec.garble`` spans wrap each walk.
@@ -49,17 +53,49 @@ from repro_torch.core.netlist import (
     compile_level_plan,
 )
 from repro_torch.kernels.level_eval.level_eval import (
-    eval_level,
-    garble_level,
+    eval_walk,
+    garble_walk,
+)
+from repro_torch.kernels.level_eval.ref import (
+    WalkMeta,
+    walk_offsets,
+    walk_stride,
 )
 
 I32 = torch.int32
 I64 = torch.int64
 
-#: walks whose per-lane tweak/op vectors stay under this many lanes keep
-#: them expanded on the device for the executor's lifetime (one launch
-#: fewer per vector and chunk); larger walks expand them chunk by chunk
-LANE_CACHE_MAX = 1 << 24
+
+def pack_walk(plan: LevelPlan, garble: bool, device) -> WalkMeta:
+    """One side's per-chunk records of ``plan`` (see :class:`WalkMeta`).
+
+    Garble points the INV lanes' second input at the R row (``n_rows``);
+    table slots clamp pad lanes onto a real row (their output is zeroed
+    and lands in a dead row).
+    """
+    ca, cf, K = plan.and_width, plan.free_width, plan.n_chunks
+    o = walk_offsets(ca, cf)
+    rec = np.zeros((K, walk_stride(ca, cf, garble)), np.int32)
+    g = rec[:, :o["dest"]]
+    g[:] = np.concatenate(
+        [plan.and_in0, plan.and_in1, plan.free_in0, plan.free_in1], axis=1)
+    if garble:
+        g[:, 2 * ca + cf:][plan.free_inv != 0] = plan.n_rows
+    # concat([AND, free]) lane j lands at row base + argsort(perm)[j]
+    rec[:, o["dest"]:o["tweak"]] = (plan.base[:, None]
+                                    + np.argsort(plan.perm, axis=1))
+    rec[:, o["tweak"]:o["op"]] = plan.and_slot
+    rec[:, o["op"]:o["extra"]] = np.where(plan.and_slot < plan.n_and,
+                                          OP_AND, OP_PAD)
+    if garble:
+        rec[:, o["extra"]] = plan.table_base
+        table_rows = plan.n_table_rows
+    else:
+        rec[:, o["extra"]:o["extra"] + ca] = np.minimum(
+            plan.and_slot, max(plan.n_and - 1, 0))
+        table_rows = max(plan.n_and, 1)
+    return WalkMeta(torch.from_numpy(rec).to(device), ca, cf, garble,
+                    plan.n_rows + 1, table_rows)
 
 
 class LevelExecutor:
@@ -73,53 +109,21 @@ class LevelExecutor:
         self.n_garble_calls = 0
         self.n_src = len(plan.source_ids)
         dev = self.device
-        ca, cf = plan.and_width, plan.free_width
 
-        def t(x, dtype=I64):
-            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+        def t(x):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=I64,
                                    device=dev)
 
         # the store carries one row past the plan's rows: R, read by the
         # garbler's INV lanes in place of the zero dummy row
         self._r_row = plan.n_rows
-        widx = np.concatenate(
-            [plan.and_in0, plan.and_in1, plan.free_in0, plan.free_in1],
-            axis=1)
-        gidx = widx.copy()
-        gidx[:, 2 * ca + cf:][plan.free_inv != 0] = self._r_row
-        self._widx = t(widx)
-        self._gidx = t(gidx)
-        # concat([AND, free]) lane j lands at row base + argsort(perm)[j]
-        dest = plan.base[:, None] + np.argsort(plan.perm, axis=1)
-        self._dest_and = t(dest[:, :ca])
-        self._dest_free = t(dest[:, ca:])
-        # table rows per AND lane (pad slots clamp onto a real row: their
-        # output is zeroed by the kernel and lands in a garbage row)
-        self._slot = t(np.minimum(plan.and_slot, max(plan.n_and - 1, 0)))
-        self._tweak = t(plan.and_slot.astype(np.int64), I32)
-        self._and_ops = t(np.where(plan.and_slot < plan.n_and, OP_AND,
-                                   OP_PAD), I32)
-        self._table_base = plan.table_base.tolist()
+        self._eval_meta = pack_walk(plan, False, dev)
+        self._garble_meta = pack_walk(plan, True, dev)
         self._outs = t(plan.out_rows)
         self._wire_rows = t(plan.wire_rows)
         self._and_rows = t(plan.and_rows)
-        self._lanes_cached = (plan.n_chunks * ca * self.instances
-                              <= LANE_CACHE_MAX)
-        if self._lanes_cached:
-            self._tweak_lanes = self._tweak.repeat_interleave(
-                self.instances, dim=1)
-            self._op_lanes = self._and_ops.repeat_interleave(
-                self.instances, dim=1)
 
     # ------------------------------------------------------------------
-    def _lanes(self, k: int):
-        """Chunk k's per-lane (ops, tweaks), lane-major over instances."""
-        if self._lanes_cached:
-            return self._op_lanes[k], self._tweak_lanes[k]
-        I = self.instances
-        return (self._and_ops[k].repeat_interleave(I),
-                self._tweak[k].repeat_interleave(I))
-
     def _store(self, labels: torch.Tensor) -> torch.Tensor:
         """labels (I, n_src, 4) -> (n_rows + 1, I, 4) store, sources filled."""
         I = self.instances
@@ -127,10 +131,6 @@ class LevelExecutor:
                         device=self.device)
         w[: self.n_src] = labels.to(self.device, I32).transpose(0, 1)
         return w
-
-    def _commit(self, w, k, and_out, free_out):
-        w.index_copy_(0, self._dest_and[k], and_out)
-        w.index_copy_(0, self._dest_free[k], free_out)
 
     # ------------------------------------------------------------------
     # evaluate
@@ -145,22 +145,12 @@ class LevelExecutor:
             return self._evaluate(active, tables)
 
     def _evaluate(self, active, tables):
-        plan, I = self.plan, self.instances
-        ca, cf = plan.and_width, plan.free_width
         w = self._store(active)
         tables = tables.to(self.device, I32)
-        # (nT, I, 4) row stores of each table half: one gather per chunk
+        # (nT, I, 4) row stores of each table half
         tg_rows = tables[:, :, 0].transpose(0, 1).contiguous()
         te_rows = tables[:, :, 1].transpose(0, 1).contiguous()
-        for k in range(plan.n_chunks):
-            g = w.index_select(0, self._widx[k])
-            ops, tw = self._lanes(k)
-            out = eval_level(
-                ops, g[:ca].view(-1, 4), g[ca:2 * ca].view(-1, 4),
-                tg_rows.index_select(0, self._slot[k]).view(-1, 4),
-                te_rows.index_select(0, self._slot[k]).view(-1, 4), tw)
-            self._commit(w, k, out.view(ca, I, 4),
-                         g[2 * ca:2 * ca + cf] ^ g[2 * ca + cf:])
+        eval_walk(self._eval_meta, w, tg_rows, te_rows)
         return w[self._outs].transpose(0, 1).contiguous()
 
     # ------------------------------------------------------------------
@@ -186,26 +176,14 @@ class LevelExecutor:
 
     def _garble(self, src_labels, r, keep_wires):
         plan, I, dev = self.plan, self.instances, self.device
-        ca, cf, nA = plan.and_width, plan.free_width, plan.n_and
-        r = r.to(dev, I32)
+        nA = plan.n_and
+        r = r.to(dev, I32).contiguous()
         w = self._store(src_labels)
         w[self._r_row] = r
-        r_lanes = r.repeat(ca, 1)  # lane l * I + i holds r[i]
         tg_store = torch.zeros((plan.n_table_rows, I, 4), dtype=I32,
                                device=dev)
         te_store = torch.zeros_like(tg_store)
-        c0 = torch.empty((ca * I, 4), dtype=I32, device=dev)
-        for k in range(plan.n_chunks):
-            g = w.index_select(0, self._gidx[k])
-            ops, tw = self._lanes(k)
-            tb = self._table_base[k]
-            garble_level(
-                ops, g[:ca].view(-1, 4), g[ca:2 * ca].view(-1, 4),
-                r_lanes, tw,
-                out=(c0, tg_store[tb:tb + ca].view(-1, 4),
-                     te_store[tb:tb + ca].view(-1, 4)))
-            self._commit(w, k, c0.view(ca, I, 4),
-                         g[2 * ca:2 * ca + cf] ^ g[2 * ca + cf:])
+        garble_walk(self._garble_meta, w, r, tg_store, te_store)
         in_zero = w[: self.n_src].transpose(0, 1).contiguous()
         out_perm = (w[self._outs, :, 0] & 1).transpose(0, 1).contiguous()
         tables = torch.zeros((I, max(nA, 1), 2, 4), dtype=I32, device=dev)

@@ -63,14 +63,28 @@ def test_wrapper_rejects_misaligned_labels(cuda):
         LE.eval_level(ops[:8], flat, b[:8], tg[:8], te[:8], tw[:8])
 
 
-@pytest.mark.parametrize("instances", [1, 16])
-def test_executor_on_card_matches_cpu(cuda, instances):
+def _cmp_net():
     cb = CircuitBuilder("cmp")
     x, y = cb.g_input_word(12), cb.e_input_word(12)
     lt = arith.lt_signed(cb, x, y)
     cb.output(arith.mux(cb, lt, x, y))
     cb.output(cb.INV(lt))
-    net = cb.build()
+    return cb.build()
+
+
+def _protocol_nets():
+    from repro_torch.config import PrivacyConfig
+    from repro_torch.core.protocol import PiTProtocol
+
+    p = PiTProtocol(PrivacyConfig(), seed=0, device="cpu")
+    return {"softmax2": p.softmax_net(2, 24),
+            "gelu": p.activation_net("gelu", 24)}
+
+
+@pytest.mark.parametrize("instances", [1, 16])
+@pytest.mark.parametrize("name", ["cmp", "softmax2"])
+def test_executor_on_card_matches_cpu(cuda, name, instances):
+    net = _cmp_net() if name == "cmp" else _protocol_nets()[name]
     rng = np.random.default_rng(instances)
     gb = rng.integers(0, 2, (instances, len(net.garbler_inputs)))
     eb = rng.integers(0, 2, (instances, len(net.evaluator_inputs)))
@@ -88,6 +102,101 @@ def test_executor_on_card_matches_cpu(cuda, instances):
         outs.append([t.cpu() for t in (gc.input_zero, gc.tables,
                                        gc.output_perm, out)])
     assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# whole walks: the walk kernels against the plain walks
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import gc_exec as X  # noqa: E402
+from repro_torch.core.netlist import compile_level_plan  # noqa: E402
+
+
+def _walk_operands(meta, instances, seed):
+    gen = torch.Generator().manual_seed(seed)
+    words = lambda *s: torch.randint(-(1 << 31), 1 << 31, s,  # noqa: E731
+                                     dtype=torch.int32, generator=gen)
+    store = words(meta.store_rows, instances, 4)
+    r = words(instances, 4)
+    r[:, 0] |= 1
+    return store, r, words(meta.table_rows, instances, 4), \
+        words(meta.table_rows, instances, 4)
+
+
+def _walk_both(cuda, plan, instances, seed):
+    """Each side's walk kernel and plain walk on the same random store
+    and tables: (store, tables) from the card and from the CPU."""
+    out = []
+    for garble in (False, True):
+        meta = X.pack_walk(plan, garble, "cpu")
+        dmeta = meta._replace(records=meta.records.to(cuda))
+        store, r, t1, t2 = _walk_operands(meta, instances, seed)
+        if garble:
+            store[-1] = r  # the R row
+        d = [x.to(cuda) for x in (store, r, t1, t2)]
+        if garble:
+            LE.garble_walk(dmeta, d[0], d[1], d[2], d[3])
+            ref.garble_walk(meta, store, r, t1, t2)
+            res = [(d[0], store), (d[2], t1), (d[3], t2)]
+        else:
+            LE.eval_walk(dmeta, d[0], d[2], d[3])
+            ref.eval_walk(meta, store, t1, t2)
+            res = [(d[0], store)]
+        torch.cuda.synchronize()
+        out += [(x.cpu(), y) for x, y in res]
+    return out
+
+
+@pytest.mark.parametrize("instances", [1, 8, 4097])
+@pytest.mark.parametrize("name", ["gelu", "softmax2"])
+def test_walk_kernels_match_plain_walks(cuda, name, instances):
+    net = _protocol_nets()[name]
+    for garble in (False, True):
+        plan = compile_level_plan(net, instances=instances, garbling=garble)
+        LE.reset_launches()
+        for got, want in _walk_both(cuda, plan, instances, seed=instances):
+            assert torch.equal(got, want)
+        assert (LE.eval_walk.launches, LE.garble_walk.launches) == (1, 1)
+        assert (LE.eval_level.launches, LE.garble_level.launches) == (0, 0)
+
+
+def test_walk_kernels_wide_lanes_and_clusters(cuda):
+    """Chunks of 1,024 AND + 4,096 free lanes (the LayerNorm's latency
+    widths: a 72 KB record, 224 KB of shared memory per block) split over
+    a cluster of 8 blocks, and a cluster split at a ragged I."""
+    net = _protocol_nets()["softmax2"]
+    for (ca, cf), instances in (((1024, 4096), 8), ((64, 352), 3)):
+        plan = compile_level_plan(net, and_width=ca, free_width=cf)
+        shape = LE.walk_shape(ca, cf, X.pack_walk(plan, False, "cpu").stride,
+                              instances)
+        assert shape.cluster == (8 if ca == 1024 else 4), shape
+        for got, want in _walk_both(cuda, plan, instances, seed=ca):
+            assert torch.equal(got, want)
+
+
+def test_keep_wires_garble_on_card_matches_cpu(cuda):
+    """``keep_wires`` garbling (the append-only plan) through the garble
+    walk kernel: every wire's zero-label as on the CPU."""
+    net = _cmp_net()
+    res = []
+    for dev in (cuda, "cpu"):
+        LE.reset_launches()
+        gc = G.garble(net, torch.Generator().manual_seed(1), 5, device=dev,
+                      keep_wires=True)
+        assert LE.garble_walk.launches == (1 if dev == cuda else 0)
+        res.append([t.cpu() for t in (gc.input_zero, gc.tables,
+                                      gc.output_perm, gc.wire_zero)])
+    assert all(torch.equal(x, y) for x, y in zip(*res))
+
+
+def test_walk_wrapper_refuses_misaligned(cuda):
+    net = _protocol_nets()["gelu"]
+    meta = X.pack_walk(compile_level_plan(net, instances=2), False, cuda)
+    store, _, t1, t2 = (x.to(cuda) for x in _walk_operands(meta, 2, 0))
+    flat = torch.zeros(t1.numel() + 1, dtype=torch.int32, device=cuda)
+    mis = flat[1:].view(t1.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        LE.eval_walk(meta, store, mis, t2)
 
 
 # ---------------------------------------------------------------------------

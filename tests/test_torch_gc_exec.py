@@ -2,9 +2,13 @@
 (``impl="jit"``), bit for bit: the same netlist (each package builds its
 own, and they must agree gate for gate), the same ``(src_labels, R)``,
 then input zero-labels, tables, output colour bits and evaluated output
-labels. Both instance regimes (I=1 latency, I=16 throughput), the
-protocol's full-width trunc and GeLU netlists and small circuit
-generators, plus ``keep_wires`` on an append-only plan."""
+labels. Both instance regimes (I=1 and I=8 latency, I=16 throughput),
+the protocol's full-width trunc, GeLU and softmax netlists (a short
+softmax row: the latency-width plan with wide free lanes that dominates
+serving) and small circuit generators, plus ``keep_wires`` on an
+append-only plan. The port's executor runs the plain walks over its
+packed per-chunk records here, so these tests also cover the packing
+the walk kernels read."""
 
 import numpy as np
 import pytest
@@ -45,13 +49,16 @@ def _protocol_net(kind):
     def build(CB, A):
         p = (JProtocol(JConfig(), seed=0) if CB is JB
              else TProtocol(TConfig(), seed=0, device="cpu"))
+        if kind == "softmax":
+            return p.softmax_net(2, 24)
         return p.trunc_net(24) if kind == "trunc" else \
             p.activation_net("gelu", 24)
     return build
 
 
 NETS = {"adder": _adder, "comparator": _comparator,
-        "trunc": _protocol_net("trunc"), "gelu": _protocol_net("gelu")}
+        "trunc": _protocol_net("trunc"), "gelu": _protocol_net("gelu"),
+        "softmax": _protocol_net("softmax")}
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +106,7 @@ def _active(net, plan, in_zero, r, I, seed):
     return act, net.eval_plain(gb, eb)
 
 
-@pytest.mark.parametrize("instances", [1, 16])
+@pytest.mark.parametrize("instances", [1, 8, 16])
 @pytest.mark.parametrize("name", list(NETS))
 def test_executor_matches_jax_executor(nets, name, instances):
     jn, tn = nets[name]
@@ -127,7 +134,8 @@ def test_executor_matches_jax_executor(nets, name, instances):
     assert np.array_equal(got_bits, want_bits)
     assert te.n_eval_calls == 1 and tg.n_garble_calls >= 1
     # the regime switch of the plan widths follows the instance count
-    assert (I <= LATENCY_MAX_INSTANCES) == (I == 1)
+    assert (I <= LATENCY_MAX_INSTANCES) == (I in (1, 8))
+    assert te.plan.widths == TX.compile_level_plan(tn, instances=I).widths
 
 
 @pytest.mark.parametrize("name", ["comparator", "trunc"])
