@@ -14,7 +14,8 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               gives it, plus a ragged size, against its plain PyTorch
               version on the same inputs: bit-exact; kernel time (device
               time from ``torch.profiler``), the plain version's time and
-              the roofline bound;
+              the roofline bound; the NTT also at the HE linear's launch
+              shapes and at a 31-bit prime, timed warm and L2-cold;
 4. parity   — the GC executor (GeLU netlist, I=64) and a private
               transformer session (d=64, 4 heads, d_ff=128, 1 layer, S=4)
               on ``cuda`` against the same on ``cpu``: bit-exact;
@@ -53,8 +54,9 @@ Phases, each asserting (any failure exits non-zero and prints no result):
 The line before the last is the ``kernels`` JSON summary of all eight
 kernels; the last line is ``{"ok": true, "device": {...}}``. ``--json
 PATH`` also writes every measurement (per-shape kernel times, phase times,
-span totals) to PATH. Needs ``torch`` with CUDA and ``nvcc``; there is no
-CPU fallback.
+span totals) to PATH. ``--ntt-only`` runs phases 1, 2 and the NTT's part
+of 3 and stops (about 20 s), to compare two versions of the NTT in one
+call. Needs ``torch`` with CUDA and ``nvcc``; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ SRC = ROOT / "src"
 #: architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: bytes that pass between two uses of a buffer in an L2-cold timing: four
+#: times the H100's 50 MB L2
+COLD_BYTES = 200e6
 
 DEVICE = "cuda"
 
@@ -270,10 +275,37 @@ def _print_rows(tag, rows):
               f"{r['bound_ms']:.4f} by {r['bound_by']})")
 
 
+def _cold_ms(launch_all, launches, kernel_sym, reps=5):
+    """Device time per launch when no launch finds its input or output in
+    L2: ``launch_all()`` makes ``launches`` launches over distinct inputs
+    and keeps their outputs until its next call, so a buffer comes round
+    again only after more bytes than the L2 holds have passed (profiler
+    device time, else CUDA events)."""
+    launch_all()
+    ms = _ms_kernel(launch_all, kernel_sym, reps)
+    if ms is None:
+        ms = _ms_kernel(launch_all, kernel_sym, reps)
+    if ms is not None:
+        return ms, "profiler"
+    return _ms_events(launch_all, reps) / launches, "events"
+
+
 def phase_kernels_ntt(args):
-    """NTT forward and inverse at N=2048: the 3 HE primes over the rows of
-    a d→d ``he_matvec`` (P x blocks) and a ragged row count, and one limb
-    prime below 46340 (the Pallas kernel's range) at the same sizes."""
+    """NTT forward and inverse at N=2048, the HE parameters' length.
+
+    Timed at the three HE primes over the rows of a d→d ``he_matvec``
+    (P x blocks) and over the launches of ``mul_plain`` in the HE linear at
+    d→d and d→d_ff (forward over the ciphertext pair and the plaintexts,
+    blocks + 2 rows per prime; inverse over the 2 x blocks products): warm,
+    20 launches on one input, and L2-cold, launches rotating over distinct
+    inputs and outputs that pass ``COLD_BYTES`` between two uses of a
+    buffer. The share of the bound is taken from the cold time. Every
+    row count, and a ragged one, is checked bit-exact against the plain
+    version in both directions at the HE primes, at a limb prime below
+    46340 (the Pallas kernel's range) and at the largest NTT prime below
+    2^31."""
+    import math
+
     import torch
     from repro_torch.config import PrivacyConfig
     from repro_torch.core import he as HE
@@ -284,47 +316,96 @@ def phase_kernels_ntt(args):
     params = HE.make_params(n=pc.he_poly_n, num_primes=pc.he_num_primes,
                             t_bits=pc.he_t_bits)
     n, qs = params.n, params.qs
+    P = len(qs)
     limb = NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]
-    _, blocks = HE.matvec_plan(params, args.d, args.d)
-    gen = torch.Generator().manual_seed(args.seed)
-    rows, err = [], 0
-    for q, per in ((qs, blocks), (qs, 37), (limb, len(qs) * blocks),
-                   (limb, 1001)):
-        P = len(NR.primes_of(q))
-        x = torch.stack([torch.randint(0, p, (per, n), generator=gen)
-                         for p in NR.primes_of(q)]).to(DEVICE)
-        if P == 1:
-            x = x[0]
-        for inverse, kern, plain in ((False, NTT.ntt_forward, NR.ntt_forward),
-                                     (True, NTT.ntt_inverse, NR.ntt_inverse)):
-            got, want = kern(x, q), plain(x, q)
-            torch.cuda.synchronize()
-            e = _max_abs_diff([got], [want])
-            assert e == 0, f"ntt (inverse={inverse}) != plain at {q}, {per}"
-            err = max(err, e)
-            if per in (37, 1001):
-                continue
-            nrows = P * per
-            ops = nrows * (n // 2 * (n.bit_length() - 1)
-                           * NTT.OPS_PER_BUTTERFLY
-                           + (n * NTT.OPS_PER_SCALE if inverse else 0))
-            # residues in and out, the (P, n) int32 table, (P, 3) constants;
-            # a 64-bit operation counted as one int32 operation
-            bound, by = _bound(nrows * n * NTT.BYTES_PER_COEFF
-                               + P * n * 4 + P * 24, ops)
-            rows.append(dict(
-                shape=f"{'inverse' if inverse else 'forward'} P={P} "
-                      f"rows={nrows} N={n} q={'HE' if P > 1 else limb}",
-                inverse=inverse, P=P, rows=nrows, n=n,
-                **_timed(lambda: kern(x, q), lambda: plain(x, q),
-                         "ntt_kernel"),
-                bound_ms=bound, bound_by=by, ops_64bit=ops))
-    _print_rows("ntt", rows)
+    q31 = NR.find_ntt_primes(31, 1, n)[0]
+    _, b_dd = HE.matvec_plan(params, args.d, args.d)
+    _, b_ff = HE.matvec_plan(params, args.d, args.d_ff)
+    dd, dff = f"{args.d}->{args.d}", f"{args.d}->{args.d_ff}"
+    # (what, rows per prime, inverse)
+    timed = [(f"{dd} he_matvec rows", b_dd, False),
+             (f"{dd} he_matvec rows", b_dd, True),
+             (f"{dd} mul_plain", b_dd + 2, False),
+             (f"{dd} mul_plain", 2 * b_dd, True),
+             (f"{dff} mul_plain", b_ff + 2, False),
+             (f"{dff} mul_plain", 2 * b_ff, True)]
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+
+    def residues(q, per):
+        """(P, per, n) at the HE primes; (P * per, n) at one prime."""
+        ps = NR.primes_of(q)
+        if len(ps) == 1:
+            return torch.randint(0, ps[0], (P * per, n), generator=gen,
+                                 device=DEVICE)
+        return torch.stack([torch.randint(0, p, (per, n), generator=gen,
+                                          device=DEVICE) for p in ps])
+
+    def pair(inverse):
+        return ((NTT.ntt_inverse, NR.ntt_inverse) if inverse
+                else (NTT.ntt_forward, NR.ntt_forward))
+
+    err, checked = 0, []
+    for per in sorted({per for _, per, _ in timed} | {37}):
+        for q in (qs, limb, q31):
+            x = residues(q, per)
+            for inverse in (False, True):
+                kern, plain = pair(inverse)
+                got, want = kern(x, q), plain(x, q)
+                torch.cuda.synchronize()
+                e = _max_abs_diff([got], [want])
+                assert e == 0, (f"ntt (inverse={inverse}) != plain at "
+                                f"q={q}, {per} rows per prime: {e}")
+                err = max(err, e)
+            checked.append((P * per, "HE" if q is qs else q))
+            del x, got, want
+    print(f"[kernels] ntt bit-exact, forward and inverse, at "
+          f"{len(checked)} (rows, primes): " + ", ".join(
+              f"{r} x {q}" for r, q in checked))
+
+    rows = []
+    for what, per, inverse in timed:
+        kern, plain = pair(inverse)
+        nrows = P * per
+        moved = 2 * nrows * n * 8  # int64 residues in and out
+        k = max(2, math.ceil(COLD_BYTES / moved))
+        xs = [residues(qs, per) for _ in range(k)]
+        x = xs[0]
+        warm = _timed(lambda: kern(x, qs), lambda: plain(x, qs),
+                      "ntt_kernel")
+        outs = []
+
+        def launch_all():
+            nonlocal outs
+            outs = [kern(xi, qs) for xi in xs]
+
+        cold, cold_timing = _cold_ms(launch_all, k, "ntt_kernel")
+        ops = nrows * (n // 2 * (n.bit_length() - 1) * NTT.OPS_PER_BUTTERFLY
+                       + (n // 2 * NTT.OPS_PER_SCALE if inverse else 0))
+        # residues in and out, the (P, n) int32 psi table, (P, 3) constants
+        bound, by = _bound(nrows * n * NTT.BYTES_PER_COEFF + P * n * 4
+                           + P * 24, ops)
+        rows.append(dict(
+            shape=f"{'inverse' if inverse else 'forward'} {what}: P={P} x "
+                  f"{per} rows, N={n}",
+            what=what, inverse=inverse, P=P, rows=nrows, n=n,
+            ms=cold, timing=cold_timing, cold_buffers=k,
+            ms_warm=warm["ms"], timing_warm=warm["timing"],
+            call_ms=warm["call_ms"], plain_ms=warm["plain_ms"],
+            bound_ms=bound, bound_by=by, bound_share=bound / cold, ops=ops))
+        del xs, x, outs
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"[kernels] ntt {r['shape']}: cold {r['ms']:.4f} ms "
+              f"({r['timing']}, {r['cold_buffers']} buffers), warm "
+              f"{r['ms_warm']:.4f} ms ({r['timing_warm']}; call "
+              f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']} "
+              f"({100 * r['bound_share']:.0f}% of it when cold)")
     print(f"[kernels] ntt bound: {NTT.BYTES_PER_COEFF} B per coefficient "
-          f"(int64 in and out) plus the int32 table; "
-          f"{NTT.OPS_PER_BUTTERFLY} 64-bit operations per butterfly "
-          f"(+{NTT.OPS_PER_SCALE} per coefficient for the inverse's n^-1), "
-          "each counted as one int32 operation")
+          f"(int64 in and out) plus the int32 psi table; "
+          f"{NTT.OPS_PER_BUTTERFLY} int32 operations per butterfly "
+          f"(+{NTT.OPS_PER_SCALE} per butterfly of the inverse's last stage "
+          "for the n^-1 scale)")
     return rows, err
 
 
@@ -898,6 +979,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", type=Path, default=None,
                     help="write all measurements to this file")
+    ap.add_argument("--ntt-only", action="store_true",
+                    help="run the device, build and NTT kernel phases only "
+                         "(to compare two versions of the NTT in one call);"
+                         " prints no kernels or ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -914,6 +999,17 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     name, smi = phase_device()
     built = phase_build()
+    if args.ntt_only:
+        ntt_rows, ntt_err = phase_kernels_ntt(args)
+        if args.json is not None:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps({
+                "device": name, "nvidia_smi": smi, "build": built,
+                "ntt": ntt_rows, "max_abs_err": ntt_err,
+                "total_s": time.perf_counter() - t_all}, indent=1,
+                default=float))
+        print(f"[done] {time.perf_counter() - t_all:.1f} s")
+        return 0
     krows, g_eval, g_garble = phase_kernels(args)
     ntt_rows, ntt_err = phase_kernels_ntt(args)
     hg_rows, ls_rows, gate_err = phase_kernels_gates(args, g_eval)
@@ -966,7 +1062,9 @@ def main(argv=None) -> int:
                                          "ms", "us_per_chunk", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "walks_per_run")} for r in mine]})
-    fwd, inv = ntt_rows[0], ntt_rows[1]  # the HE primes at d->d rows
+    # the HE primes at the d->d he_matvec rows, L2-cold; every shape,
+    # warm and cold, under "shapes"
+    fwd, inv = ntt_rows[0], ntt_rows[1]
     kernels.append({
         "name": "ntt", "route": "cuda", "source": src["ntt"],
         "replaces": "src/repro/kernels/ntt/ntt.py:89",
@@ -975,9 +1073,15 @@ def main(argv=None) -> int:
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": None, "rows": fwd["rows"], "n": fwd["n"],
         "call_ms": fwd["call_ms"], "timing": fwd["timing"],
-        "inverse_ms": inv["ms"], "inverse_plain_ms": inv["plain_ms"],
+        "ms_warm": fwd["ms_warm"],
+        "inverse_ms": inv["ms"], "inverse_ms_warm": inv["ms_warm"],
+        "inverse_plain_ms": inv["plain_ms"],
         "inverse_bound_ms": inv["bound_ms"],
-        "launches_he_phase": he["launches"]})
+        "launches_he_phase": he["launches"],
+        "shapes": [{k: r[k] for k in ("shape", "rows", "ms", "ms_warm",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "timing", "timing_warm")}
+                   for r in ntt_rows]})
     for row, replaces in ((hg_rows[0], "src/repro/kernels/halfgate/"
                            "halfgate.py:64"),
                           (hg_rows[1], "src/repro/kernels/halfgate/"

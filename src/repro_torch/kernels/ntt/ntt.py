@@ -2,9 +2,11 @@
 
 Replaces the JAX package's Pallas kernel ``kernels/ntt/ntt.py:89``
 (``ntt_pallas``) and its dispatch (``kernels/ntt/ops.py``). The kernel is
-``csrc/ntt.cu``; it takes any prime q < 2^31 (the Pallas kernel only
-limb primes q <= 46340), so the ~30-bit primes of ``core/he.py`` run on
-the card too.
+``csrc/ntt.cu`` (32-bit Shoup products, stages merged in registers,
+16-byte loads and stores; its header note says how each serves the
+bytes bound); it takes any prime q < 2^31 (the Pallas kernel only limb
+primes q <= 46340), so the ~30-bit primes of ``core/he.py`` run on the
+card too.
 
 ``q`` is one prime, or a sequence of P primes with ``a`` shaped
 (P, ..., N): the rows of ``a[i]`` are taken mod ``q[i]``, and one launch
@@ -15,19 +17,19 @@ Wrapper rules, as for every kernel of the port:
 * a CPU tensor runs the plain PyTorch version (``ref.py``);
 * a CUDA tensor launches the kernel, building it with ``nvcc`` on first
   use, or raises — there is no fallback;
-* device, dtype (int64), shape (N a power of two up to 8192), contiguity
-  and the primes are checked before the launch; the C entry point's
-  error code is raised on;
+* device, dtype (int64), shape (N a power of two up to 8192), contiguity,
+  16-byte alignment (the kernel moves rows as 16-byte vectors) and the
+  primes are checked before the launch; the C entry point's error code is
+  raised on;
 * launches are counted in ``ntt_forward.launches`` and
   ``ntt_inverse.launches``, incremented only where the kernel launches.
 
 Work, for a roofline bound: ``BYTES_PER_COEFF`` (an int64 read and an
-int64 write) and ``OPS_PER_BUTTERFLY`` 64-bit integer operations (the
-product, its Barrett reduction, a modular add and subtract) for each of
-the N/2 · log2 N butterflies of a row; the inverse adds the n^-1 scale,
-``OPS_PER_SCALE`` per coefficient. The pointwise product between the
-transforms stays a torch op, as it is a host-side combine in the
-reference (``kernels/ntt/ops.py:50``).
+int64 write) and ``OPS_PER_BUTTERFLY`` int32 instructions for each of the
+N/2 · log2 N butterflies of a row; the inverse's last stage adds
+``OPS_PER_SCALE`` per butterfly for the n^-1 scale folded into it. The
+pointwise product between the transforms stays a torch op, as it is a
+host-side combine in the reference (``kernels/ntt/ops.py:50``).
 """
 
 from __future__ import annotations
@@ -47,8 +49,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ntt.cu"
 MAX_N = 8192
 
 BYTES_PER_COEFF = 8 + 8
-OPS_PER_BUTTERFLY = 8  # mul, Barrett (mulhi, mul-sub, 2 compare-subtracts) + add/sub mod
-OPS_PER_SCALE = 4
+#: a forward butterfly: the Shoup product (umulhi, mul, mul-add, sub, min)
+#: and a modular add and subtract (add, sub, min each); the inverse's is
+#: one fewer (its difference goes to the product unreduced)
+OPS_PER_BUTTERFLY = 11
+#: the inverse's last stage: a second Shoup product replaces the sum's
+#: reduction (12 instructions against 10)
+OPS_PER_SCALE = 2
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -70,18 +77,19 @@ def _lib() -> ctypes.CDLL:
 
 def device_tables(qs: Tuple[int, ...], n: int, inverse: bool,
                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(P, n) int32 psi (or inverse psi) table and (P, 3) int64 constants
-    (q, Barrett mu = floor(2^64 / q) as its int64 bit pattern, n^-1),
-    built once per (primes, n, direction, device)."""
+    """(P, n, 2) int32 table of {w, w'}: the psi (or inverse psi) powers
+    and their Shoup companions w' = floor(w · 2^32 / q), and (P, 8) int32
+    constants (q, n^-1, its companion, w[1] · n^-1, its companion, 0, 0,
+    0), all as uint32 bit patterns; built once per (primes, n, direction,
+    device)."""
     key = (qs, n, inverse, str(device))
     hit = _TABLES.get(key)
     if hit is None:
-        tabs = [ref.ntt_tables(q, n) for q in qs]
-        table = np.stack([t[1 if inverse else 0] for t in tabs]).astype(np.int32)
-        consts = np.array([[q, (1 << 64) // q, t[2]] for q, t in zip(qs, tabs)],
-                          dtype=np.uint64).view(np.int64)
-        hit = _TABLES[key] = (torch.from_numpy(table).to(device),
-                              torch.from_numpy(consts).to(device))
+        tabs = [ref.kernel_tables(q, n, inverse) for q in qs]
+        table = np.stack([t for t, _ in tabs]).astype(np.uint32)
+        consts = np.stack([c for _, c in tabs]).astype(np.uint32)
+        hit = _TABLES[key] = (torch.from_numpy(table.view(np.int32)).to(device),
+                              torch.from_numpy(consts.view(np.int32)).to(device))
     return hit
 
 
@@ -97,6 +105,8 @@ def _launch(fn, a: torch.Tensor, q: Primes, inverse: bool) -> torch.Tensor:
         return (ref.ntt_inverse if inverse else ref.ntt_forward)(a, qs)
     if not a.is_contiguous():
         raise ValueError(f"{name}: residues must be contiguous")
+    if a.data_ptr() % 16:
+        raise ValueError(f"{name}: residues must be 16-byte aligned")
     if not 2 <= n <= MAX_N or n & (n - 1):
         raise ValueError(f"{name}: N must be a power of two in [2, {MAX_N}],"
                          f" got {n}")

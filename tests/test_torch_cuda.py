@@ -213,7 +213,11 @@ from repro_torch.kernels.ntt import ntt as NTT  # noqa: E402
 from repro_torch.kernels.ntt import ref as NR  # noqa: E402
 
 
-@pytest.mark.parametrize("n,rows", [(8, 5), (256, 3), (2048, 7), (8192, 2)])
+# row counts that are not a multiple of a block's rows (128 / (N / 16)
+# rows per block below N = 2048)
+@pytest.mark.parametrize("n,rows", [(8, 5), (256, 3), (2048, 7), (8192, 2),
+                                    (2, 129), (4, 77), (16, 300), (64, 33),
+                                    (512, 9), (1024, 3), (4096, 5)])
 def test_ntt_kernel_matches_plain_version(cuda, n, rows):
     qs = NR.find_ntt_primes(30, 3, n)
     rng = np.random.default_rng(n)
@@ -222,6 +226,9 @@ def test_ntt_kernel_matches_plain_version(cuda, n, rows):
     if n <= 2048:  # no prime = 1 mod 2N below 46340 for larger N
         limb = NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]
         cases.append((limb, a[0] % limb))
+    # the largest NTT prime below 2^31: sums of two residues need all 32 bits
+    q31 = NR.find_ntt_primes(31, 1, n)[0]
+    cases.append((q31, torch.from_numpy(rng.integers(0, q31, (rows, n)))))
     NTT.reset_launches()
     for q, x in cases:
         d = x.to(cuda)
@@ -247,6 +254,10 @@ def test_ntt_wrapper_refusals(cuda):
                                     device=cuda), q)
     with pytest.raises(ValueError, match="2\\^31"):
         NTT.ntt_forward(x, 2 ** 31 + 513)
+    # an 8-byte offset: the kernel moves rows as 16-byte vectors
+    flat = torch.zeros(4 * 256 + 1, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        NTT.ntt_forward(flat[1:].view(4, 256), q)
 
 
 @pytest.mark.parametrize("lead,r_lead", [((4097,), (4097,)), ((3, 1001), (3, 1)),
