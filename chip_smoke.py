@@ -49,10 +49,32 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               and the roofline bound beside the chain of n_chunks steps;
 9. profile  — one more request on the same engine under ``torch.profiler``
               (after the counters are read): device time by kernel and the
-              device's busy share of that request's wall time.
+              device's busy share of that request's wall time;
+10. net     — the two-party runtime on the card at the serving phase's
+              model and inputs: ``PitNetServer`` + ``GarblerEndpoint`` over
+              ``InProcPipe`` (wire v2, IKNP) and over loopback TCP (wire
+              v1), ``preprocess(requests)`` and ``requests`` runs each;
+              outputs and per-tag ledgers (both endpoints) equal to the
+              in-process session at the same wire version; counters zeroed
+              before the endpoints are built, and the walk kernels, label
+              select and the NTT must have launched; offline and online
+              seconds, MB per tag, device-to-host and host-to-device copy
+              seconds (spans ``net.d2h`` / ``net.h2d``) and the busy share
+              of a warm run;
+11. eager   — ``forward_private`` on the card at the serving phase's
+              model (BERT-base width, same weights, seed and first input),
+              equal to that phase's first output bit for bit; the walk
+              kernels, label select and the NTT must have launched.
+
+Phase 3 also runs the NTT at N = 16384 and 32768 (bit-exact at their HE
+primes, a 31-bit prime and ragged rows; profiler times, warm and cold, at
+the launch shapes of that ring's HE linear) and
+``PiTProtocol(PrivacyConfig(he_poly_n=16384))`` key generation on the card
+(keys equal to the CPU's).
 
 The line before the last is the ``kernels`` JSON summary of all eight
-kernels; the last line is ``{"ok": true, "device": {...}}``. ``--json
+kernels (``launches`` from serving, or from ``gates`` off that path, and
+``launches_net`` / ``launches_eager`` from phases 10 and 11); the last line is ``{"ok": true, "device": {...}}``. ``--json
 PATH`` also writes every measurement (per-shape kernel times, phase times,
 span totals) to PATH. ``--ntt-only`` runs phases 1, 2 and the NTT's part
 of 3 and stops (about 20 s), to compare two versions of the NTT in one
@@ -98,7 +120,9 @@ def _ms_events(fn, reps):
 
 def _ms_kernel(fn, name, reps):
     """Device time per launch of the CUDA kernel whose name contains
-    ``name``, from ``torch.profiler``; None if the trace has none."""
+    ``name``, from ``torch.profiler``; None if the trace has none. With a
+    tuple of names (a call that launches one of each), the sum of their
+    times per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,16 +135,21 @@ def _ms_kernel(fn, name, reps):
     except (RuntimeError, AssertionError) as e:  # no CUDA activity traced
         print(f"[kernels] torch.profiler unavailable ({e!r})")
         return None
-    for ev in events:
-        if name in ev.key and ev.count:
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = ev.cuda_time_total
-            if us > 0:
-                return us / ev.count / 1e3
-    print(f"[kernels] no device time for {name!r} in the trace; keys: "
-          + "; ".join(ev.key[:60] for ev in events))
-    return None
+    total = 0.0
+    for one in (name if isinstance(name, tuple) else (name,)):
+        for ev in events:
+            if one in ev.key and ev.count:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                if us > 0:
+                    total += us / ev.count / 1e3
+                    break
+        else:
+            print(f"[kernels] no device time for {one!r} in the trace; keys: "
+                  + "; ".join(ev.key[:60] for ev in events))
+            return None
+    return total
 
 
 def _max_abs_diff(xs, ys):
@@ -290,20 +319,24 @@ def _cold_ms(launch_all, launches, kernel_sym, reps=5):
     return _ms_events(launch_all, reps) / launches, "events"
 
 
-def phase_kernels_ntt(args):
-    """NTT forward and inverse at N=2048, the HE parameters' length.
+def phase_kernels_ntt(args, n=None):
+    """NTT forward and inverse at ring length ``n`` (the HE parameters'
+    2048 by default), at the HE primes of a ``PrivacyConfig`` of that
+    ring.
 
-    Timed at the three HE primes over the rows of a d→d ``he_matvec``
-    (P x blocks) and over the launches of ``mul_plain`` in the HE linear at
-    d→d and d→d_ff (forward over the ciphertext pair and the plaintexts,
-    blocks + 2 rows per prime; inverse over the 2 x blocks products): warm,
-    20 launches on one input, and L2-cold, launches rotating over distinct
-    inputs and outputs that pass ``COLD_BYTES`` between two uses of a
-    buffer. The share of the bound is taken from the cold time. Every
-    row count, and a ragged one, is checked bit-exact against the plain
-    version in both directions at the HE primes, at a limb prime below
-    46340 (the Pallas kernel's range) and at the largest NTT prime below
-    2^31."""
+    Timed over the rows of a d→d ``he_matvec`` (P x blocks) and over the
+    launches of ``mul_plain`` in the HE linear at d→d and d→d_ff (forward
+    over the ciphertext pair and the plaintexts, blocks + 2 rows per
+    prime; inverse over the 2 x blocks products), the blocks being those
+    of that ring's ``matvec_plan``: warm, 20 launches on one input, and
+    L2-cold, launches rotating over distinct inputs and outputs that pass
+    ``COLD_BYTES`` between two uses of a buffer; device time from the
+    profiler (at N = 32768, the top-stage and in-block kernels of one
+    call summed). The share of the bound is taken from the cold time.
+    Every row count, and a ragged one, is checked bit-exact against the
+    plain version in both directions at the HE primes, at a limb prime
+    below 46340 (the Pallas kernel's range; none exists for N > 2048) and
+    at the largest NTT prime below 2^31."""
     import math
 
     import torch
@@ -312,12 +345,15 @@ def phase_kernels_ntt(args):
     from repro_torch.kernels.ntt import ntt as NTT
     from repro_torch.kernels.ntt import ref as NR
 
-    pc = PrivacyConfig()
+    pc = PrivacyConfig() if n is None else PrivacyConfig(he_poly_n=n)
     params = HE.make_params(n=pc.he_poly_n, num_primes=pc.he_num_primes,
                             t_bits=pc.he_t_bits)
     n, qs = params.n, params.qs
     P = len(qs)
-    limb = NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]
+    sym = ("ntt_kernel", "top_stage_kernel") if n > NTT.MAX_ROW_N \
+        else "ntt_kernel"
+    extra = [NR.find_ntt_primes(16, 1, n, max_q=NR.INT32_PRODUCT_BOUND)[0]] \
+        if n <= 2048 else []
     q31 = NR.find_ntt_primes(31, 1, n)[0]
     _, b_dd = HE.matvec_plan(params, args.d, args.d)
     _, b_ff = HE.matvec_plan(params, args.d, args.d_ff)
@@ -346,7 +382,7 @@ def phase_kernels_ntt(args):
 
     err, checked = 0, []
     for per in sorted({per for _, per, _ in timed} | {37}):
-        for q in (qs, limb, q31):
+        for q in (qs, *extra, q31):
             x = residues(q, per)
             for inverse in (False, True):
                 kern, plain = pair(inverse)
@@ -371,19 +407,20 @@ def phase_kernels_ntt(args):
         xs = [residues(qs, per) for _ in range(k)]
         x = xs[0]
         warm = _timed(lambda: kern(x, qs), lambda: plain(x, qs),
-                      "ntt_kernel")
+                      sym)
         outs = []
 
         def launch_all():
             nonlocal outs
             outs = [kern(xi, qs) for xi in xs]
 
-        cold, cold_timing = _cold_ms(launch_all, k, "ntt_kernel")
+        cold, cold_timing = _cold_ms(launch_all, k, sym)
         ops = nrows * (n // 2 * (n.bit_length() - 1) * NTT.OPS_PER_BUTTERFLY
                        + (n // 2 * NTT.OPS_PER_SCALE if inverse else 0))
-        # residues in and out, the (P, n) int32 psi table, (P, 3) constants
-        bound, by = _bound(nrows * n * NTT.BYTES_PER_COEFF + P * n * 4
-                           + P * 24, ops)
+        # residues in and out, the (P, n, 2) int32 {w, w'} table and the
+        # (P, 8) int32 constants
+        bound, by = _bound(nrows * n * NTT.BYTES_PER_COEFF + P * n * 8
+                           + P * 32, ops)
         rows.append(dict(
             shape=f"{'inverse' if inverse else 'forward'} {what}: P={P} x "
                   f"{per} rows, N={n}",
@@ -391,7 +428,8 @@ def phase_kernels_ntt(args):
             ms=cold, timing=cold_timing, cold_buffers=k,
             ms_warm=warm["ms"], timing_warm=warm["timing"],
             call_ms=warm["call_ms"], plain_ms=warm["plain_ms"],
-            bound_ms=bound, bound_by=by, bound_share=bound / cold, ops=ops))
+            bound_ms=bound, bound_by=by, bound_share=bound / cold, ops=ops,
+            launches_per_call=2 if n > NTT.MAX_ROW_N else 1))
         del xs, x, outs
         torch.cuda.empty_cache()
     for r in rows:
@@ -402,11 +440,49 @@ def phase_kernels_ntt(args):
               f"{r['bound_ms']:.4f} by {r['bound_by']} "
               f"({100 * r['bound_share']:.0f}% of it when cold)")
     print(f"[kernels] ntt bound: {NTT.BYTES_PER_COEFF} B per coefficient "
-          f"(int64 in and out) plus the int32 psi table; "
+          f"(int64 in and out) plus the int32 twiddle table; "
           f"{NTT.OPS_PER_BUTTERFLY} int32 operations per butterfly "
           f"(+{NTT.OPS_PER_SCALE} per butterfly of the inverse's last stage "
           "for the n^-1 scale)")
     return rows, err
+
+
+def phase_ntt_large(args):
+    """The NTT above one block's row (N = 16384 in one block of 1024
+    threads and 128 KB of shared memory; N = 32768 as a top-stage pass
+    over device memory and two sub-rows of 16384): ``phase_kernels_ntt``
+    at each ring, i.e. bit-exact checks and profiler times at the launch
+    shapes of that ring's HE linear; then
+    ``PiTProtocol(PrivacyConfig(he_poly_n=16384))`` key generation on the
+    card, whose keys must equal the CPU's."""
+    import torch
+    from repro_torch.config import PrivacyConfig
+    from repro_torch.core.protocol import PiTProtocol
+    from repro_torch.kernels.ntt import ntt as NTT
+
+    rows, err = [], 0
+    for n in (16384, 32768):
+        r, e = phase_kernels_ntt(args, n)
+        rows += r
+        err = max(err, e)
+
+    keys, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        NTT.reset_launches()
+        t0 = time.perf_counter()
+        pr = PiTProtocol(PrivacyConfig(he_poly_n=16384), seed=args.seed,
+                         device=dev)
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        launches = NTT.ntt_forward.launches + NTT.ntt_inverse.launches
+        assert (launches > 0) == (dev == DEVICE), (dev, launches)
+        keys[dev] = [pr.sk.cpu(), *(c.cpu() for c in pr.pk)]
+    assert all(torch.equal(a, b) for a, b in zip(keys[DEVICE], keys["cpu"])), \
+        "keygen at he_poly_n=16384: card != cpu"
+    print(f"[kernels] PiTProtocol(PrivacyConfig(he_poly_n=16384)) on the "
+          f"card: keys == CPU's; {secs[DEVICE]:.3f} s (CPU {secs['cpu']:.3f}"
+          " s)")
+    return rows, err, {"card_s": secs[DEVICE], "cpu_s": secs["cpu"]}
 
 
 def phase_kernels_gates(args, gates):
@@ -799,6 +875,7 @@ def phase_serve(args):
         "level_launches": chunk_launches,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "spans_s": spans,
+        "comm": st.comm_snapshot(),
     }
     print(f"[serve] BERT-base width d={d} h={args.heads} d_ff={dff}, "
           f"{args.layers} layer(s) of {BERT_BASE.num_layers}, S={S}, "
@@ -817,7 +894,7 @@ def phase_serve(args):
           f"max < 0.25, mean < 0.05)")
     top = sorted(spans.items(), key=lambda kv: -kv[1])[:12]
     print("[serve] spans (s): " + "; ".join(f"{k} {v:.2f}" for k, v in top))
-    return res, engine, xs[0]
+    return res, engine, xs[0], ys
 
 
 def _serving_executors(engine):
@@ -930,22 +1007,26 @@ def phase_walks(engine, args):
     return rows
 
 
-def phase_profile(engine, x, seq):
-    """Device time of one warm request, from a CUDA-only profiler trace."""
+def _profiled(run, tag):
+    """Wall time of ``run()`` and device seconds and launch count by
+    kernel, from a CUDA-only profiler trace; None where it has none
+    (``run()`` still runs, once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import PrivateRequest
 
-    engine.preprocess(seq, 1)
+    ran = False
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.serve([PrivateRequest(x=x)])
+            run()
+            ran = True
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
     except (RuntimeError, AssertionError) as e:  # no CUDA activity traced
-        print(f"[profile] torch.profiler unavailable ({e!r}): not measured")
+        print(f"[{tag}] torch.profiler unavailable ({e!r}): not measured")
+        if not ran:
+            run()
         return None
     by_kernel = {}
     for ev in events:
@@ -954,6 +1035,18 @@ def phase_profile(engine, x, seq):
             us = ev.cuda_time_total
         if us > 0:
             by_kernel[ev.key] = (us / 1e6, ev.count)
+    return wall, by_kernel
+
+
+def phase_profile(engine, x, seq):
+    """Device time of one warm request, from a CUDA-only profiler trace."""
+    from repro_torch.serve import PrivateRequest
+
+    engine.preprocess(seq, 1)
+    got = _profiled(lambda: engine.serve([PrivateRequest(x=x)]), "profile")
+    if got is None:
+        return None
+    wall, by_kernel = got
     busy = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"[profile] one warm request under the profiler: wall {wall:.2f} s,"
@@ -964,6 +1057,243 @@ def phase_profile(engine, x, seq):
     return {"wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
             "top": {k: {"s": t, "count": c} for k, (t, c) in top}}
+
+
+def _span_total(report, name):
+    return sum(v["total_s"] for k, v in report.items()
+               if k.split("/")[-1] == name)
+
+
+def _busy_share(run):
+    """Wall time of ``run()`` and the device's busy share of it."""
+    got = _profiled(run, "net")
+    if got is None:
+        return None
+    wall, by_kernel = got
+    busy = sum(t for t, _ in by_kernel.values())
+    return {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall}
+
+
+def phase_net(args, serve, serve_ys):
+    """The two-party runtime on the card at BERT-base width: a
+    ``PitNetServer`` (weights, evaluation) and a ``GarblerEndpoint``
+    (input, garbling) on one GPU, the model and inputs of the serving
+    phase. Over ``InProcPipe`` with wire v2 (IKNP OT, seed streams, delta
+    tables), then over a ``TcpListener`` on 127.0.0.1 (port 0) with wire
+    v1: handshake, ``preprocess(requests)``, ``requests`` runs each. The
+    revealed outputs must equal the in-process session's at the same
+    seed and wire version (a v2 session built here; the serving phase's
+    for v1), and each endpoint's per-tag ``WireLedger`` that session's
+    metered ``Channel``, offline and online. The launch counters are
+    zeroed just before the endpoints are built (their protocols generate
+    HE keys) and read after the last run: ``garble_walk``, ``eval_walk``,
+    ``select_labels`` and the NTT must have launched. Each endpoint (and
+    the in-process session) builds its own netlists and level plans, as
+    each party of a deployment does in its own process: the garbler's
+    offline time and the server's first run include them. The last v2
+    run (warm: its plans are built) runs under the profiler for the
+    device's busy share."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.config import BERT_BASE, PrivacyConfig
+    from repro_torch.core.engine import PrivateTransformer, random_weights
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
+    from repro_torch.net import (GarblerEndpoint, InProcPipe, PitNetServer,
+                                 TcpListener, TcpTransport)
+
+    S, d, dff = args.seq, args.d, args.d_ff
+    rng = np.random.default_rng(args.seed)  # the serving phase's draws
+    ws = random_weights(rng, d, dff, args.layers)
+    xs = rng.normal(0, 1, (args.requests, S, d))
+    model = PrivateTransformer(PrivacyConfig(), d, args.heads, dff, ws,
+                               seed=args.seed,
+                               activation=BERT_BASE.activation,
+                               device=DEVICE)
+    timeout = 1200
+
+    def two_party(wire, tcp):
+        res = {}
+        tag = f"v{wire} {'TCP' if tcp else 'InProcPipe'}"
+        t0 = time.perf_counter()
+        srv = PitNetServer(model, S, device=DEVICE, seed=args.seed)
+        if tcp:
+            lst = TcpListener("127.0.0.1", 0)
+            loop = srv.serve_tcp(lst, timeout=timeout, max_conns=1)
+            transport = TcpTransport.connect("127.0.0.1", lst.port)
+        else:
+            a, b = InProcPipe.make_pair()
+            srv.serve_transport(b, timeout=timeout)
+            transport = a
+        cli = GarblerEndpoint(transport, seed=args.seed, device=DEVICE,
+                              timeout=timeout, wire_version=wire)
+        cli.handshake()
+        torch.cuda.synchronize()
+        res["handshake_s"] = time.perf_counter() - t0
+        assert cli.shared.negotiated_version == wire
+        t0 = time.perf_counter()
+        cli.preprocess(args.requests)
+        torch.cuda.synchronize()
+        res["offline_s"] = time.perf_counter() - t0
+        print(f"[net] {tag}: handshake {res['handshake_s']:.2f} s, "
+              f"preprocess({args.requests}) {res['offline_s']:.2f} s",
+              flush=True)
+        ys, t_req = [], []
+        for i, x in enumerate(xs):
+            t0 = time.perf_counter()
+            if wire == 2 and i == len(xs) - 1:
+                # the last run is warm (its plans are built): profiled
+                res["warm"] = _busy_share(lambda: ys.append(cli.run(x)))
+            else:
+                ys.append(cli.run(x))
+            torch.cuda.synchronize()
+            t_req.append(time.perf_counter() - t0)
+            print(f"[net] {tag}: run {t_req[-1]:.2f} s", flush=True)
+        res["online_s_per_request"] = t_req
+        res["ledger"] = {"client": cli.shared.ledger.summary(),
+                         "server": srv.shared.ledger.summary()}
+        return res, np.stack(ys), cli, srv, (loop, lst) if tcp else None
+
+    def check(tag, ys, res, want_ys, comm):
+        assert np.array_equal(ys, want_ys), f"{tag}: outputs != session"
+        for side, led in res["ledger"].items():
+            for phase in ("offline", "online"):
+                got = led[f"{phase}_by_tag"]
+                assert got == comm[phase]["by_tag"], \
+                    f"{tag}: {side} {phase} ledger != metered session"
+
+    for mod in (LE, NTT, LS):
+        mod.reset_launches()
+    tracer = obs.enable()
+    try:
+        v2, ys2, cli, srv, _ = two_party(2, tcp=False)
+        launches = {"garble_walk": LE.garble_walk.launches,
+                    "eval_walk": LE.eval_walk.launches,
+                    "select_labels": LS.select_labels.launches,
+                    "ntt": NTT.ntt_forward.launches
+                    + NTT.ntt_inverse.launches}
+        chunk_launches = {"eval_level": LE.eval_level.launches,
+                          "garble_level": LE.garble_level.launches}
+        spans = tracer.report()
+        v2["d2h_s"] = _span_total(spans, "net.d2h")
+        v2["h2d_s"] = _span_total(spans, "net.h2d")
+        v2["walk_host_s"] = {side: _span_total(spans, f"gc_exec.{side}")
+                             for side in ("garble", "evaluate")}
+        v2["plan_build_s"] = _span_total(spans, "gc_exec.get_executor")
+        v2["codec_s"] = {k: _span_total(spans, f"net.{k}")
+                         for k in ("encode", "decode")}
+        v2["spans_s"] = {k: v["total_s"] for k, v in sorted(
+            spans.items(), key=lambda kv: -kv[1]["total_s"])[:30]}
+    finally:
+        obs.disable()
+    assert all(v > 0 for v in launches.values()), launches
+    assert not any(chunk_launches.values()), chunk_launches
+    cli.close()
+
+    t0 = time.perf_counter()
+    sess = model.compile_session(S, seed=args.seed, wire_version=2,
+                                 device=DEVICE)
+    bundles = sess.preprocess(args.requests)
+    want2 = np.stack([sess.run(x, b) for x, b in zip(xs, bundles)])
+    t_sess = time.perf_counter() - t0
+    check("v2 pipe", ys2, v2, want2, sess.stats.comm_snapshot())
+    print(f"[net] v2: outputs and ledgers == in-process v2 session "
+          f"({t_sess:.2f} s)", flush=True)
+    del sess, bundles
+
+    v1, ys1, cli1, _, (loop, lst) = two_party(1, tcp=True)
+    check("v1 tcp", ys1, v1, serve_ys, serve["comm"])
+    assert v1["ledger"]["client"]["seed_stream_segs"] == 0
+    cli1.close()
+    loop.stop()
+    lst.close()
+
+    for tag, r in (("v2 InProcPipe", v2), ("v1 TCP", v1)):
+        led = r["ledger"]["client"]
+        print(f"[net] {tag}: handshake {r['handshake_s']:.2f} s, offline "
+              f"{r['offline_s']:.2f} s for {args.requests} bundles, online "
+              + ", ".join(f"{t:.2f}" for t in r["online_s_per_request"])
+              + f" s per request; offline {led['offline_bytes'] / 1e6:.2f} "
+              f"MB, online {led['online_bytes'] / 1e6:.2f} MB, sideband "
+              f"{led['sim_bytes'] / 1e6:.2f} MB")
+    print("[net] outputs == in-process session (v2 built here, v1 the "
+          "serving phase's), bit for bit; per-tag ledgers == metered "
+          "Channel on both endpoints, offline and online")
+    for phase in ("offline", "online"):
+        by = v2["ledger"]["client"][f"{phase}_by_tag"]
+        print(f"[net] v2 {phase} MB by tag: " + "; ".join(
+            f"{k} {b / 1e6:.3f}" for k, b in sorted(by.items(),
+                                                    key=lambda kv: -kv[1])))
+    warm = v2["warm"]
+    print(f"[net] v2 copies: D2H {v2['d2h_s']:.3f} s, H2D {v2['h2d_s']:.3f}"
+          f" s; walks' host time garble {v2['walk_host_s']['garble']:.3f} s,"
+          f" evaluate {v2['walk_host_s']['evaluate']:.3f} s; delta tables "
+          f"encode {v2['codec_s']['encode']:.2f} s, decode "
+          f"{v2['codec_s']['decode']:.2f} s; plan building "
+          f"{v2['plan_build_s']:.2f} s (both endpoints); launches {launches}")
+    print("[net] v2 span totals (s, both endpoints): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in list(v2["spans_s"].items())[:14]))
+    if warm is not None:
+        print(f"[net] the last v2 run (warm) under the profiler: wall "
+              f"{warm['wall_s']:.2f} s, device busy "
+              f"{warm['device_busy_s']:.3f} s "
+              f"({100 * warm['busy_share']:.2f}%)")
+    print(f"[net] in-process v2 session for the check: {t_sess:.2f} s")
+    return {"v2_pipe": v2, "v1_tcp": v1, "launches": launches,
+            "level_launches": chunk_launches, "session_v2_s": t_sess}
+
+
+def phase_eager(args, serve_ys):
+    """``PrivateTransformer.forward_private`` (the eager path: offline and
+    online legs per op through the protocol's single-call wrappers) on the
+    card at the serving phase's model (BERT-base width, the same weights,
+    seed and first input), built anew so it builds its own level plans:
+    its revealed output must equal the serving phase's first output bit
+    for bit (the eager path draws what one bundle of a session draws).
+    Launch counters zeroed just before the model is built."""
+    import numpy as np
+    import torch
+    from repro_torch.config import BERT_BASE, PrivacyConfig
+    from repro_torch.core.engine import PrivateTransformer, random_weights
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
+
+    S, d, dff = args.seq, args.d, args.d_ff
+    rng = np.random.default_rng(args.seed)  # the serving phase's draws
+    ws = random_weights(rng, d, dff, args.layers)
+    x = rng.normal(0, 1, (args.requests, S, d))[0]
+    for mod in (LE, LS, NTT):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    model = PrivateTransformer(PrivacyConfig(), d, args.heads, dff, ws,
+                               seed=args.seed,
+                               activation=BERT_BASE.activation,
+                               device=DEVICE)
+    y = model.forward_private(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"garble_walk": LE.garble_walk.launches,
+                "eval_walk": LE.eval_walk.launches,
+                "select_labels": LS.select_labels.launches,
+                "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches}
+    chunk_launches = {"eval_level": LE.eval_level.launches,
+                      "garble_level": LE.garble_level.launches}
+    assert y.shape == (S, d) and np.isfinite(y).all(), y.shape
+    assert np.array_equal(y, serve_ys[0]), \
+        "forward_private != the serving phase's first output"
+    assert all(v > 0 for v in launches.values()), launches
+    assert not any(chunk_launches.values()), chunk_launches
+    print(f"[eager] forward_private d={d} h={args.heads} d_ff={dff} "
+          f"{args.layers} layer(s) S={S} on the card: == the serving "
+          f"phase's first output bit for bit, {secs:.1f} s (model built, "
+          f"HE keys and level plans included); launches {launches}")
+    return {"seconds": secs, "launches": launches,
+            "level_launches": chunk_launches,
+            "config": dict(d=d, heads=args.heads, d_ff=dff,
+                           layers=args.layers, seq=S)}
 
 
 def main(argv=None) -> int:
@@ -1001,24 +1331,39 @@ def main(argv=None) -> int:
     built = phase_build()
     if args.ntt_only:
         ntt_rows, ntt_err = phase_kernels_ntt(args)
+        big_rows, big_err, keygen = phase_ntt_large(args)
         if args.json is not None:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps({
                 "device": name, "nvidia_smi": smi, "build": built,
-                "ntt": ntt_rows, "max_abs_err": ntt_err,
+                "ntt": ntt_rows + big_rows, "keygen_16384": keygen,
+                "max_abs_err": max(ntt_err, big_err),
                 "total_s": time.perf_counter() - t_all}, indent=1,
                 default=float))
         print(f"[done] {time.perf_counter() - t_all:.1f} s")
         return 0
+    def lap(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t_all:.1f} s",
+              flush=True)
+
     krows, g_eval, g_garble = phase_kernels(args)
     ntt_rows, ntt_err = phase_kernels_ntt(args)
+    big_rows, big_err, keygen = phase_ntt_large(args)
     hg_rows, ls_rows, gate_err = phase_kernels_gates(args, g_eval)
+    lap("kernels")
     parity = phase_parity(args)
     gates = phase_gates(args, g_eval)
     he = phase_he(args)
-    serve, engine, x0 = phase_serve(args)
+    lap("parity, gates, he")
+    serve, engine, x0, serve_ys = phase_serve(args)
     walks = phase_walks(engine, args)
     prof = phase_profile(engine, x0, args.seq)
+    del engine
+    lap("serving, walks, profile")
+    net = phase_net(args, serve, serve_ys)
+    lap("net")
+    eager = phase_eager(args, serve_ys)
+    lap("eager")
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
            for p in _sources()}
@@ -1068,7 +1413,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "ntt", "route": "cuda", "source": src["ntt"],
         "replaces": "src/repro/kernels/ntt/ntt.py:89",
-        "launches": serve["launches"]["ntt"], "max_abs_err": ntt_err,
+        "launches": serve["launches"]["ntt"],
+        "max_abs_err": max(ntt_err, big_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": None, "rows": fwd["rows"], "n": fwd["n"],
@@ -1078,10 +1424,12 @@ def main(argv=None) -> int:
         "inverse_plain_ms": inv["plain_ms"],
         "inverse_bound_ms": inv["bound_ms"],
         "launches_he_phase": he["launches"],
+        "keygen_16384": keygen,
         "shapes": [{k: r[k] for k in ("shape", "rows", "ms", "ms_warm",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "timing", "timing_warm")}
-                   for r in ntt_rows]})
+                                      "timing", "timing_warm",
+                                      "launches_per_call")}
+                   for r in ntt_rows + big_rows]})
     for row, replaces in ((hg_rows[0], "src/repro/kernels/halfgate/"
                            "halfgate.py:64"),
                           (hg_rows[1], "src/repro/kernels/halfgate/"
@@ -1102,16 +1450,22 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "G": row["G"], "call_ms": row["call_ms"],
             "timing": row["timing"]})
+    # launches of this slice's paths: the two-party run and the eager path
+    for k in kernels:
+        k["launches_net"] = net["launches"].get(k["name"], 0)
+        k["launches_eager"] = eager["launches"].get(k["name"], 0)
     total = time.perf_counter() - t_all
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "device": name, "nvidia_smi": smi, "build": built,
             "kernels": {str(g): r for g, r in krows.items()},
-            "ntt": ntt_rows, "halfgate": hg_rows, "label_select": ls_rows,
+            "ntt": ntt_rows + big_rows, "keygen_16384": keygen,
+            "halfgate": hg_rows, "label_select": ls_rows,
             "parity": parity, "gates": gates,
             "he": he, "serve": serve, "walks": walks,
-            "profile": prof, "total_s": total}, indent=1,
+            "profile": prof, "net": net, "eager": eager,
+            "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,10 @@ every layer routed per the APINT recipe:
 
 The port serves through ``compile_session`` → ``preprocess`` → ``run``
 (:mod:`repro_torch.core.session`), whose plan is traced from the model's
-shapes exactly as the JAX package traces its eager ``forward_private``.
-``forward_float`` is the float reference for the accuracy check.
+shapes exactly as the JAX package traces its eager ``forward_private``;
+``forward_private`` itself is kept as the eager compatibility path, on
+the protocol's single-call wrappers. ``forward_float`` is the float
+reference for the accuracy check.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List, Sequence
 import numpy as np
 
 from repro_torch.config import PrivacyConfig
+from repro_torch.core import secret_sharing as SS
 from repro_torch.core.protocol import PiTProtocol
 
 
@@ -134,3 +137,52 @@ class PrivateTransformer:
             hdn = act(x @ W.w1.T)
             x = ln(x + hdn @ W.w2.T, W.ln2_g, W.ln2_b)
         return x
+
+    def _linear_t(self, W, xc, xs):
+        """(S, d_in) shares × W (d_out, d_in) -> shares at frac (trunc'd)."""
+        yc, ys = self.p.linear(W, xc, xs)
+        return self.p.trunc(yc, ys, 2 * self.p.frac)
+
+    # ------------------------------------------------------------------
+    def forward_private(self, x: np.ndarray) -> np.ndarray:
+        """x: (S, d) client input (float). Returns (S, d) revealed output.
+
+        Eager compatibility path: offline and online legs interleave per
+        layer. Production serving should go through ``compile_session`` →
+        ``preprocess`` → ``run`` so offline work pools across requests.
+        """
+        p = self.p
+        f = p.frac
+        S = x.shape[0]
+        xc, xs = p.share_input(x)
+        for W in self.weights:
+            # ---- attention ------------------------------------------------
+            qc, qs = self._linear_t(W.wq * self.scale_q, xc, xs)
+            kc, ks = self._linear_t(W.wk, xc, xs)
+            vc, vs = self._linear_t(W.wv, xc, xs)
+            ctx_c = np.zeros((S, self.d), np.uint64)
+            ctx_s = np.zeros((S, self.d), np.uint64)
+            for h in range(self.h):
+                sl = slice(h * self.hd, (h + 1) * self.hd)
+                sc_, ss_ = p.matmul_private(
+                    qc[:, sl], qs[:, sl],
+                    kc[:, sl].T.copy(), ks[:, sl].T.copy(),
+                )  # (S, S) at 2f
+                pc_, ps_ = p.softmax_rows(sc_, ss_, S, in_scale=2 * f)
+                oc_, os_ = p.matmul_private(pc_, ps_, vc[:, sl], vs[:, sl])
+                oc_, os_ = p.trunc(oc_, os_, 2 * f)
+                ctx_c[:, sl] = oc_
+                ctx_s[:, sl] = os_
+            ac, as_ = self._linear_t(W.wo, ctx_c, ctx_s)
+            # residual + LN1 (post-norm)
+            hc = SS.add_mod(xc, ac, p.t)
+            hs = SS.add_mod(xs, as_, p.t)
+            xc, xs = p.layernorm(hc, hs, W.ln1_g, W.ln1_b, in_scale=f)
+            # ---- MLP -------------------------------------------------------
+            h1c, h1s = p.linear(W.w1, xc, xs)  # (S, d_ff) at 2f
+            gc_, gs_ = p.activation(self.activation, h1c, h1s, in_scale=2 * f)
+            h2c, h2s = self._linear_t(W.w2, gc_, gs_)
+            hc = SS.add_mod(xc, h2c, p.t)
+            hs = SS.add_mod(xs, h2s, p.t)
+            xc, xs = p.layernorm(hc, hs, W.ln2_g, W.ln2_b, in_scale=f)
+        return p.reveal(xc, xs)

@@ -16,7 +16,7 @@ zero-labels, so one seed gives the same circuit on every device.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +82,38 @@ def _index(pos: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int64, device=device)
 
 
+def _seeded_zero_labels(seeded_inputs, instances: int, r: torch.Tensor):
+    """Zero-labels for wires whose *active* labels come from a PRG stream.
+
+    ``seeded_inputs`` is ``(wire_ids, bits, seed, counter)``: the garbler
+    commits that the active label of wire ``wire_ids[j]`` in instance
+    ``i`` is stream label ``counter + i*n + j``, so the zero-label must
+    be ``active ^ bits * R`` (one label-select launch on the card).
+    ``encode_inputs`` on those wires then reproduces the stream exactly —
+    which is what lets the v2 wire ship a 32-byte seed record instead of
+    the label bytes.
+    """
+    wire_ids, bits, seed, counter = seeded_inputs
+    wire_ids = np.asarray(wire_ids, np.int64)
+    n = len(wire_ids)
+    active = LB.stream_labels(seed, counter, instances * n, r.device)
+    return wire_ids, select_labels(active.reshape(instances, n, 4),
+                                   r[:, None, :], bits)
+
+
 def garble(net: Netlist, gen: torch.Generator, instances: int = 1, *,
-           device="cuda", keep_wires: bool = False) -> GarbledCircuit:
+           device="cuda", keep_wires: bool = False,
+           seeded_inputs=None) -> GarbledCircuit:
     """Garble ``instances`` independent copies of ``net`` on ``device``.
 
     ``keep_wires`` needs every gate's row alive at the end, so it pins
     the append-only (compact=False) plan; the default garbles through the
     liveness-compacted store on the garble-width plan.
+
+    ``seeded_inputs=(wire_ids, bits, seed, counter)`` presets the listed
+    input wires so their active labels replay a PRG stream (see
+    :func:`_seeded_zero_labels`); all other wires draw fresh labels, in
+    the same generator order as without it.
     """
     I = instances
     in_ids = _input_ids(net)
@@ -97,6 +122,9 @@ def garble(net: Netlist, gen: torch.Generator, instances: int = 1, *,
     plan = exe.plan
     r = LB.random_delta(gen, (I,), device)
     src_labels = LB.random_labels(gen, (I, len(plan.source_ids)), device)
+    if seeded_inputs is not None:
+        wids, zeros = _seeded_zero_labels(seeded_inputs, I, r)
+        src_labels[:, _index(plan.source_positions(wids), device)] = zeros
     res = exe.garble(src_labels, r, keep_wires=keep_wires)
     src_zero, tables, out_perm = res[:3]
     in_zero = src_zero[:, _index(plan.source_positions(in_ids), device)]
@@ -151,6 +179,12 @@ def const_wires_labels(gc: GarbledCircuit) -> Tuple[np.ndarray, torch.Tensor]:
     lab = encode_inputs(gc, wires, np.broadcast_to(bits, (gc.num_instances,
                                                           len(wires))))
     return wires, lab
+
+
+def const_labels(gc: GarbledCircuit) -> Dict[int, torch.Tensor]:
+    """Active labels of constant wires (garbler supplies with the tables)."""
+    wires, lab = const_wires_labels(gc)
+    return {int(w): lab[:, j] for j, w in enumerate(wires)}
 
 
 def evaluate(net: Netlist, tables: torch.Tensor,

@@ -41,6 +41,8 @@ the port to — not its structure.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -196,6 +198,19 @@ class LevelExecutor:
         return in_zero, tables, out_perm
 
 
+_NET_LOCKS = threading.Lock()
+
+
+def _net_lock(net: Netlist) -> threading.Lock:
+    """The lock that guards ``net``'s plan and executor caches (made once
+    per netlist object, under a module lock)."""
+    with _NET_LOCKS:
+        lock = getattr(net, "_exec_lock", None)
+        if lock is None:
+            lock = net._exec_lock = threading.Lock()  # type: ignore[attr-defined]
+        return lock
+
+
 def get_executor(net: Netlist, instances: int, device="cuda",
                  compact: bool = True,
                  garbling: bool = False) -> LevelExecutor:
@@ -209,9 +224,14 @@ def get_executor(net: Netlist, instances: int, device="cuda",
     one row per gate, which ``keep_wires`` garbling needs. The
     ``gc_exec.get_executor`` span shows what building a plan costs the
     first walk of a (netlist, widths).
+
+    Thread-safe: the two endpoints of a pipelined pair (and the evaluator
+    threads of one server) may first-use one netlist at the same time, so
+    building its plans and executors is serialised per netlist; the
+    second caller waits and then finds them cached.
     """
     with obs.span("gc_exec.get_executor", netlist=net.name or "",
-                  instances=int(instances)):
+                  instances=int(instances)), _net_lock(net):
         plan = compile_level_plan(net, instances=instances, compact=compact,
                                   garbling=garbling)
         key = (int(instances), str(torch.device(device)))

@@ -20,7 +20,11 @@ Every layer is split into an explicit ``*_offline(...) -> correlation`` /
 ``*_online(x, correlation)`` pair. Offline methods depend only on shapes
 and server weights (they garble circuits, precompute the HE masked
 products and deal Beaver triples); online methods consume one correlation
-and the live input shares. ``core/session.py`` builds the request-pooled preprocessing API on top.
+and the live input shares. The single-call composites (``linear``,
+``matmul_private``, ``gc_apply``, ``softmax_rows``, ``activation``,
+``trunc``, ``layernorm``) are thin compatibility wrappers over the pairs;
+the eager ``PrivateTransformer.forward_private`` runs on them.
+``core/session.py`` builds the request-pooled preprocessing API on top.
 
 This is the JAX package's ``core/protocol.py`` with the garbled-circuit
 work on torch tensors: garbling labels come from the protocol's
@@ -37,6 +41,7 @@ port's NTT (``core/he.py``), with their own ``torch.Generator`` (see
 from __future__ import annotations
 
 import math
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -276,6 +281,9 @@ class PiTProtocol:
         self.he_gen = torch.Generator().manual_seed(he_seed(seed))
         self.sk, self.pk = HE.keygen(self.params, self.he_gen, self.device)
         self._netlist_cache: Dict[str, Netlist] = {}
+        #: the endpoints of one party (a pipelined offline/online pair, a
+        #: server's evaluator threads) may first-build a netlist at once
+        self._netlist_lock = threading.RLock()
 
     @property
     def style(self) -> str:
@@ -396,6 +404,12 @@ class PiTProtocol:
             self.stats.channel_offline.s2c((m * k + k * n + m * n) * 8, "beaver")
         return BeaverCorrelation(trip)
 
+    def matmul_private(self, xc, xs, yc, ys):
+        m, k = xc.shape
+        k2, n = yc.shape
+        corr = self.beaver_offline(m, k, n)
+        return self.beaver_online(corr, xc, xs, yc, ys)
+
     def beaver_online(self, corr: BeaverCorrelation, xc, xs, yc, ys
                       ) -> Tuple[np.ndarray, np.ndarray]:
         with self.stats.phase("online"), \
@@ -416,18 +430,19 @@ class PiTProtocol:
         ``n_raw_e`` appends plain evaluator words (server-private values,
         e.g. γ/β in the full-GC LayerNorm), two's-complement encoded.
         """
-        if name in self._netlist_cache:
-            return self._netlist_cache[name]
-        cb = CircuitBuilder(name)
-        ins = [input_shared_word(cb, self.t, descale) for _ in range(n_in)]
-        raws = [cb.e_input_word(self.k) for _ in range(n_raw_e)]
-        outs = body(cb, ins, raws) if n_raw_e else body(cb, ins)
-        assert len(outs) == n_out
-        for y in outs:
-            output_shared(cb, Word(y.bits[: self.k]), self.t)
-        net = cb.build()
-        self._netlist_cache[name] = net
-        return net
+        with self._netlist_lock:
+            if name in self._netlist_cache:
+                return self._netlist_cache[name]
+            cb = CircuitBuilder(name)
+            ins = [input_shared_word(cb, self.t, descale)
+                   for _ in range(n_in)]
+            raws = [cb.e_input_word(self.k) for _ in range(n_raw_e)]
+            outs = body(cb, ins, raws) if n_raw_e else body(cb, ins)
+            assert len(outs) == n_out
+            for y in outs:
+                output_shared(cb, Word(y.bits[: self.k]), self.t)
+            net = self._netlist_cache[name] = cb.build()
+            return net
 
     def gc_offline(self, net: Netlist, instances: int, n_out: int,
                    gcirc: Optional[G.GarbledCircuit] = None) -> GCCorrelation:
@@ -562,6 +577,18 @@ class PiTProtocol:
     # ------------------------------------------------------------------
     # cached netlist builders (shared by wrappers and sessions)
     # ------------------------------------------------------------------
+    def gc_apply(self, net: Netlist, xc: np.ndarray, xs: np.ndarray,
+                 n_out: int, raw_e: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """xc/xs: (I, n_in) share residues mod t. Returns (I, n_out) shares.
+
+        Client garbles (offline), server evaluates (online). Instances are
+        batched — the paper's coarse-grained row mapping. ``raw_e``:
+        (I, n_raw) signed int64 server-private values (two's complement).
+        """
+        corr = self.gc_offline(net, xc.shape[0], n_out)
+        return self.gc_online(corr, xc, xs, raw_e=raw_e)
+
     def softmax_net(self, row_len: int, in_scale: int) -> Netlist:
         def body(cb, ins):
             return _softmax_body(cb, ins, self.frac, self.style)
@@ -616,6 +643,11 @@ class PiTProtocol:
         return self.gc_offline(self.softmax_net(row_len, in_scale),
                                instances, row_len, gcirc)
 
+    def softmax_rows(self, sc, ss, row_len: int, in_scale: int):
+        """(I, n) shares at scale `in_scale` -> softmax shares at frac."""
+        corr = self.softmax_offline(row_len, in_scale, sc.shape[0])
+        return self.gc_online(corr, sc, ss)
+
     def activation_offline(self, kind: str, in_scale: int, n_elems: int,
                            gcirc: Optional[G.GarbledCircuit] = None
                            ) -> GCCorrelation:
@@ -626,6 +658,11 @@ class PiTProtocol:
         oc, os_ = self.gc_online(corr, xc.reshape(-1, 1), xs.reshape(-1, 1))
         return oc.reshape(xc.shape), os_.reshape(xs.shape)
 
+    def activation(self, kind: str, xc, xs, in_scale: int):
+        """Elementwise GeLU/SiLU on shares of any shape (batched rows)."""
+        corr = self.activation_offline(kind, in_scale, xc.size)
+        return self.activation_online(corr, xc, xs)
+
     def trunc_offline(self, in_scale: int, n_elems: int,
                       gcirc: Optional[G.GarbledCircuit] = None
                       ) -> GCCorrelation:
@@ -634,6 +671,11 @@ class PiTProtocol:
     def trunc_online(self, corr: GCCorrelation, xc, xs):
         oc, os_ = self.gc_online(corr, xc.reshape(-1, 1), xs.reshape(-1, 1))
         return oc.reshape(xc.shape), os_.reshape(xs.shape)
+
+    def trunc(self, xc, xs, in_scale: int):
+        """Exact GC truncation back to scale frac (elementwise)."""
+        corr = self.trunc_offline(in_scale, xc.size)
+        return self.trunc_online(corr, xc, xs)
 
     def layernorm_offline(self, n: int, instances: int, in_scale: int,
                           gamma, beta,
@@ -713,6 +755,17 @@ class PiTProtocol:
             # ⑬ + β (server-held parameter added to its share)
             os_ = SS.add_mod(os_, np.broadcast_to(corr.bq, os_.shape), t)
         return oc, os_
+
+    def layernorm(self, xc, xs, gamma, beta, in_scale: int):
+        """(I, n) shares at scale `in_scale` -> LayerNorm shares at frac.
+
+        APINT offload when pcfg.layernorm_offload, else full-GC baseline
+        (γ/β enter the circuit as raw evaluator words — they are the
+        server's weights, so they cost full word×word multiplies).
+        """
+        corr = self.layernorm_offline(xc.shape[1], xc.shape[0], in_scale,
+                                      gamma, beta)
+        return self.layernorm_online(corr, xc, xs)
 
     def _he_inner_online(self, cxc, cxs, mask: np.ndarray):
         """Shares of ⟨client_row, server_row⟩ per row (Fig. 4 ⑧).

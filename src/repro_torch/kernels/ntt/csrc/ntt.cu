@@ -62,11 +62,25 @@
 //    twiddle): u' = (u + v) * n^-1 and v' = (u - v) * (psi^-1[1] * n^-1),
 //    two Shoup products with host-built constants; no separate pass.
 // 5. Grid. Blocks of 128 threads (one row at n = 2048, 128 / (n / 16)
-//    rows below; 256 or 512 threads for one row at n = 4096, 8192), at
-//    most 56 registers so that 9 blocks fit an SM: the 3 x 384 rows of a
-//    768-wide HE product run in one wave of 1,188 resident blocks. Larger
-//    batches loop: the grid is the resident block count and each block
-//    walks rows grid-stride.
+//    rows below; 256, 512 or 1024 threads for one row at n = 4096, 8192,
+//    16384), at most 56 registers so that 9 blocks fit an SM: the 3 x 384
+//    rows of a 768-wide HE product run in one wave of 1,188 resident
+//    blocks. Larger batches loop: the grid is the resident block count
+//    and each block walks rows grid-stride. A row of 16384 takes 128 KB of
+//    shared memory for its two buffers (one block per SM).
+// 6. Rows longer than a block holds (n = 32768). One pass over device
+//    memory runs the top stage (index bit L - 1: pairs j, j + n/2, twiddle
+//    w[1]) on the whole row, and the in-block kernel transforms each half
+//    as a sub-row of 16384: before it (forward) or after it (inverse,
+//    where the pass carries the n^-1 scale). A sub-row is not an NTT of
+//    its own length: at index bit b the pair with lower index j takes the
+//    full row's twiddle n/2^(b+1) + (j >> (b+1)), which for sub-row s of
+//    2^S is root * m + (j_local >> (b+1)) with m the sub-row's own
+//    n_sub/2^(b+1) and root = 2^S + s. So the in-block kernel reads the
+//    full row's table and multiplies each stage's base by root (a
+//    template parameter SPLIT = S; at S = 0, root = 1 and nothing
+//    changes). The extra pass moves the row once more: 32 B per
+//    coefficient against the 16 B of the bound.
 //
 // The C entry point returns cudaErrorInvalidValue for a length it does not
 // take, otherwise cudaGetLastError() after the launch; the Python wrapper
@@ -77,7 +91,8 @@
 
 namespace {
 
-constexpr int kMaxLogN = 13;   // n = 8192
+constexpr int kMaxLogN = 15;   // n = 32768
+constexpr int kMaxRowLogN = 14;  // longest row one block transforms
 constexpr int kLogR = 4;       // 16 coefficients per thread
 constexpr int kBlock = 128;    // threads per block up to n = 2048
 constexpr int kConsts = 8;     // uint32 constants per prime
@@ -169,12 +184,14 @@ __device__ __forceinline__ void butterfly_scaled(uint32_t& a, uint32_t& b,
 // Stages of register bits [I_LO, I_HI] in the io layout: register bit 0 is
 // index bit 0, register bit i >= 1 index bit LT + i. Forward stages run
 // from the highest bit down, inverse ones up. The pair whose lower index
-// is j, at index bit b, takes twiddle m + (j >> (b + 1)), m = n >> (b + 1);
-// `tw_t` is the table advanced by the thread's t.
-template <int LOG_N, bool INV, int I_LO, int I_HI>
+// is j, at index bit b, takes twiddle root * m + (j >> (b + 1)),
+// m = n >> (b + 1) (root = 1 for a whole row, see note 6); `tw_t` is the
+// table advanced by the thread's t. Only a whole row's inverse ends with
+// the scaled stage.
+template <int LOG_N, bool INV, int SPLIT, int I_LO, int I_HI>
 __device__ __forceinline__ void io_stages(uint32_t (&x)[Shape<LOG_N>::R],
                                           const uint2* tw, const uint2* tw_t,
-                                          const Prime& pr) {
+                                          uint32_t root, const Prime& pr) {
   using S = Shape<LOG_N>;
 #pragma unroll
   for (int s = 0; s < S::LOG_R; ++s) {
@@ -183,13 +200,13 @@ __device__ __forceinline__ void io_stages(uint32_t (&x)[Shape<LOG_N>::R],
 #pragma unroll
     for (int k = 0; k < S::R; ++k) {
       if (k & (1 << i)) continue;
-      if (INV && i == S::LOG_R - 1) {  // index bit L - 1: the last stage
+      if (INV && SPLIT == 0 && i == S::LOG_R - 1) {  // the last stage
         butterfly_scaled(x[k], x[k | (1 << i)], pr);
         continue;
       }
       const uint2 w = i == 0
-          ? __ldg(tw_t + (1 << (LOG_N - 1)) + ((k >> 1) << S::LT))
-          : __ldg(tw + (1 << (S::LOG_R - 1 - i)) + (k >> (i + 1)));
+          ? __ldg(tw_t + (root << (LOG_N - 1)) + ((k >> 1) << S::LT))
+          : __ldg(tw + (root << (S::LOG_R - 1 - i)) + (k >> (i + 1)));
       butterfly<INV>(x[k], x[k | (1 << i)], w, pr.q);
     }
   }
@@ -200,14 +217,15 @@ __device__ __forceinline__ void io_stages(uint32_t (&x)[Shape<LOG_N>::R],
 // below BASE, its other bits index bits from BASE + LOG_R up.
 template <int LOG_N, bool INV, int BASE, int I_LO, int I_HI>
 __device__ __forceinline__ void mid_stages(uint32_t (&x)[Shape<LOG_N>::R],
-                                           const uint2* tw, int t, uint32_t q) {
+                                           const uint2* tw, int t,
+                                           uint32_t root, uint32_t q) {
   using S = Shape<LOG_N>;
   const int thigh = t >> BASE;
 #pragma unroll
   for (int s = 0; s < S::LOG_R; ++s) {
     const int i = INV ? s : S::LOG_R - 1 - s;
     if (i < I_LO || i > I_HI) continue;
-    const uint2* wb = tw + (1 << (LOG_N - 1 - BASE - i)) +
+    const uint2* wb = tw + (root << (LOG_N - 1 - BASE - i)) +
                       (thigh << (S::LOG_R - 1 - i));
 #pragma unroll
     for (int k = 0; k < S::R; ++k) {
@@ -250,7 +268,7 @@ template <int LOG_N, bool INV, int C>
 __device__ __forceinline__ void mid_rounds(uint32_t (&x)[Shape<LOG_N>::R],
                                            uint32_t* smem, uint32_t& off,
                                            const uint2* tw, int t, int rib,
-                                           uint32_t q) {
+                                           uint32_t root, uint32_t q) {
   using S = Shape<LOG_N>;
   if constexpr (C < S::CHUNKS) {
     constexpr int FROM = C == 0 ? -1 : S::base(C - 1, INV);
@@ -258,15 +276,17 @@ __device__ __forceinline__ void mid_rounds(uint32_t (&x)[Shape<LOG_N>::R],
     exchange<LOG_N, FROM, BASE>(x, smem, off, t, rib);
     off ^= S::WORDS;
     mid_stages<LOG_N, INV, BASE, S::lo(C, INV) - BASE, S::hi(C, INV) - BASE>(
-        x, tw, t, q);
-    mid_rounds<LOG_N, INV, C + 1>(x, smem, off, tw, t, rib, q);
+        x, tw, t, root, q);
+    mid_rounds<LOG_N, INV, C + 1>(x, smem, off, tw, t, rib, root, q);
   } else {
     exchange<LOG_N, S::base(C - 1, INV), -1>(x, smem, off, t, rib);
     off ^= S::WORDS;
   }
 }
 
-template <int LOG_N, bool INV>
+// `rows` rows of 2^(LOG_N + SPLIT), each taken as 2^SPLIT sub-rows of
+// 2^LOG_N (note 6); the table is the whole row's.
+template <int LOG_N, bool INV, int SPLIT>
 __global__ void __launch_bounds__(Shape<LOG_N>::BLOCK,
                                   Shape<LOG_N>::MIN_BLOCKS)
 ntt_kernel(const longlong2* __restrict__ in, longlong2* __restrict__ out,
@@ -276,17 +296,20 @@ ntt_kernel(const longlong2* __restrict__ in, longlong2* __restrict__ out,
   extern __shared__ uint32_t smem[];
   const int t = threadIdx.x & ((1 << S::LT) - 1);
   const int rib = threadIdx.x >> S::LT;  // row within the block
-  const long long groups = (rows + S::RPB - 1) / S::RPB;
+  const long long subrows = rows << SPLIT;
+  const long long groups = (subrows + S::RPB - 1) / S::RPB;
   uint32_t off = 0;
 
   for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
-    const long long row = g * S::RPB + rib;
-    const bool valid = row < rows;
-    const long long p = (valid ? row : rows - 1) / rows_per_prime;
+    const long long row = g * S::RPB + rib;  // sub-row
+    const bool valid = row < subrows;
+    const long long p =
+        ((valid ? row : subrows - 1) >> SPLIT) / rows_per_prime;
+    const uint32_t root = (1u << SPLIT) + (uint32_t)(row & ((1 << SPLIT) - 1));
     const uint32_t* c = consts + kConsts * p;
     const Prime pr{__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3),
                    __ldg(c + 4)};
-    const uint2* tw = table + (p << LOG_N);
+    const uint2* tw = table + (p << (LOG_N + SPLIT));
     // longlong2 c2 of the thread holds registers 2 c2 and 2 c2 + 1
     const longlong2* src = in + ((row << LOG_N) >> 1) + t;
     uint32_t x[S::R];
@@ -298,12 +321,12 @@ ntt_kernel(const longlong2* __restrict__ in, longlong2* __restrict__ out,
       x[2 * c2 + 1] = (uint32_t)v.y;
     }
 
-    io_stages<LOG_N, INV, INV ? 0 : 1, INV ? 0 : S::LOG_R - 1>(x, tw, tw + t,
-                                                                pr);
+    io_stages<LOG_N, INV, SPLIT, INV ? 0 : 1, INV ? 0 : S::LOG_R - 1>(
+        x, tw, tw + t, root, pr);
     if constexpr (S::LT > 0)
-      mid_rounds<LOG_N, INV, 0>(x, smem, off, tw, t, rib, pr.q);
-    io_stages<LOG_N, INV, INV ? 1 : 0, INV ? S::LOG_R - 1 : 0>(x, tw, tw + t,
-                                                                pr);
+      mid_rounds<LOG_N, INV, 0>(x, smem, off, tw, t, rib, root, pr.q);
+    io_stages<LOG_N, INV, SPLIT, INV ? 1 : 0, INV ? S::LOG_R - 1 : 0>(
+        x, tw, tw + t, root, pr);
 
     if (valid) {
       longlong2* dst = out + ((row << LOG_N) >> 1) + t;
@@ -312,6 +335,44 @@ ntt_kernel(const longlong2* __restrict__ in, longlong2* __restrict__ out,
         dst[c2 << S::LT] =
             make_longlong2((long long)x[2 * c2], (long long)x[2 * c2 + 1]);
     }
+  }
+}
+
+// The top stage (index bit LOG_N - 1) of `rows` rows of 2^LOG_N in device
+// memory (note 6): the forward butterfly with twiddle w[1], or the
+// inverse's last stage with n^-1 folded in. A thread takes two adjacent
+// pairs as 16-byte vectors.
+template <bool INV>
+__global__ void __launch_bounds__(256)
+top_stage_kernel(const longlong2* __restrict__ in, longlong2* __restrict__ out,
+                 const uint2* __restrict__ table,
+                 const uint32_t* __restrict__ consts, long long rows,
+                 long long rows_per_prime, int log_n) {
+  const int lh = log_n - 2;  // log2 of the vectors in half a row
+  const long long half = 1LL << lh;
+  const long long total = rows << lh;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i >> lh;
+    const long long p = row / rows_per_prime;
+    const uint32_t* c = consts + kConsts * p;
+    const long long at = (row << (lh + 1)) + (i & (half - 1));
+    const longlong2 lo = __ldg(in + at), hi = __ldg(in + at + half);
+    uint32_t a0 = (uint32_t)lo.x, a1 = (uint32_t)lo.y;
+    uint32_t b0 = (uint32_t)hi.x, b1 = (uint32_t)hi.y;
+    if (!INV) {
+      const uint32_t q = __ldg(c);
+      const uint2 w = __ldg(table + (p << log_n) + 1);
+      butterfly<false>(a0, b0, w, q);
+      butterfly<false>(a1, b1, w, q);
+    } else {
+      const Prime pr{__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3),
+                     __ldg(c + 4)};
+      butterfly_scaled(a0, b0, pr);
+      butterfly_scaled(a1, b1, pr);
+    }
+    out[at] = make_longlong2((long long)a0, (long long)a1);
+    out[at + half] = make_longlong2((long long)b0, (long long)b1);
   }
 }
 
@@ -325,11 +386,11 @@ int sm_count() {
   return sms[dev] > 0 ? sms[dev] : 1;
 }
 
-template <int LOG_N, bool INV>
+template <int LOG_N, bool INV, int SPLIT = 0>
 int launch(const void* in, void* out, const void* table, const void* consts,
            long long rows, long long rows_per_prime, cudaStream_t stream) {
   using S = Shape<LOG_N>;
-  auto kernel = ntt_kernel<LOG_N, INV>;
+  auto kernel = ntt_kernel<LOG_N, INV, SPLIT>;
   const size_t smem = S::LT > 0 ? 2 * sizeof(uint32_t) * S::WORDS : 0;
   static int resident;  // blocks per SM
   if (!resident) {
@@ -344,25 +405,62 @@ int launch(const void* in, void* out, const void* table, const void* consts,
     if (e != cudaSuccess) return (int)e;
     resident = per_sm > 0 ? per_sm : 1;
   }
-  const long long groups = (rows + S::RPB - 1) / S::RPB;
+  const long long groups = ((rows << SPLIT) + S::RPB - 1) / S::RPB;
   const long long most = (long long)resident * sm_count();
   const unsigned grid = (unsigned)(groups < most ? groups : most);
-  ntt_kernel<LOG_N, INV><<<grid, S::BLOCK, smem, stream>>>(
+  kernel<<<grid, S::BLOCK, smem, stream>>>(
       (const longlong2*)in, (longlong2*)out, (const uint2*)table,
       (const uint32_t*)consts, rows, rows_per_prime);
   return (int)cudaGetLastError();
 }
 
 template <bool INV>
-int dispatch(int log_n, const void* in, void* out, const void* table,
-             const void* consts, long long rows, long long rows_per_prime,
-             cudaStream_t s) {
+int top_stage(int log_n, const void* in, void* out, const void* table,
+              const void* consts, long long rows, long long rows_per_prime,
+              cudaStream_t stream) {
+  const long long threads = rows << (log_n - 2);
+  const long long most = 8LL * sm_count();
+  const long long want = (threads + 255) / 256;
+  top_stage_kernel<INV><<<(unsigned)(want < most ? want : most), 256, 0,
+                          stream>>>(
+      (const longlong2*)in, (longlong2*)out, (const uint2*)table,
+      (const uint32_t*)consts, rows, rows_per_prime, log_n);
+  return (int)cudaGetLastError();
+}
+
+// n = 32768: the top stage in device memory and two sub-rows of 16384 a
+// row, through `scratch` (note 6)
+template <bool INV>
+int split_row(const void* in, void* out, void* scratch, const void* table,
+              const void* consts, long long rows, long long rows_per_prime,
+              cudaStream_t s) {
+  constexpr int L = kMaxRowLogN;
+  if (!INV) {
+    const int rc = top_stage<false>(L + 1, in, scratch, table, consts, rows,
+                                    rows_per_prime, s);
+    if (rc) return rc;
+    return launch<L, false, 1>(scratch, out, table, consts, rows,
+                               rows_per_prime, s);
+  }
+  const int rc = launch<L, true, 1>(in, scratch, table, consts, rows,
+                                    rows_per_prime, s);
+  if (rc) return rc;
+  return top_stage<true>(L + 1, scratch, out, table, consts, rows,
+                         rows_per_prime, s);
+}
+
+template <bool INV>
+int dispatch(int log_n, const void* in, void* out, void* scratch,
+             const void* table, const void* consts, long long rows,
+             long long rows_per_prime, cudaStream_t s) {
 #define NTT_CASE(L) \
   case L: return launch<L, INV>(in, out, table, consts, rows, rows_per_prime, s);
   switch (log_n) {
     NTT_CASE(1) NTT_CASE(2) NTT_CASE(3) NTT_CASE(4) NTT_CASE(5) NTT_CASE(6)
     NTT_CASE(7) NTT_CASE(8) NTT_CASE(9) NTT_CASE(10) NTT_CASE(11)
-    NTT_CASE(12) NTT_CASE(13)
+    NTT_CASE(12) NTT_CASE(13) NTT_CASE(14)
+    case 15: return split_row<INV>(in, out, scratch, table, consts, rows,
+                                   rows_per_prime, s);
   }
 #undef NTT_CASE
   return (int)cudaErrorInvalidValue;
@@ -372,20 +470,24 @@ int dispatch(int log_n, const void* in, void* out, const void* table,
 
 extern "C" {
 
-int ntt(const void* in, void* out, const void* table, const void* consts,
-        long long rows, long long rows_per_prime, int n, int inverse,
-        void* stream) {
+// `scratch` holds rows x n int64 when n is longer than one block's row
+// (n = 32768); it may be null otherwise.
+int ntt(const void* in, void* out, void* scratch, const void* table,
+        const void* consts, long long rows, long long rows_per_prime, int n,
+        int inverse, void* stream) {
   if (n < 2 || n > (1 << kMaxLogN) || (n & (n - 1)) || rows_per_prime <= 0 ||
       rows % rows_per_prime || rows > 0x7FFFFFFFLL ||
-      ((uintptr_t)in | (uintptr_t)out) % sizeof(longlong2))
+      ((uintptr_t)in | (uintptr_t)out | (uintptr_t)scratch) %
+          sizeof(longlong2) ||
+      (n > (1 << kMaxRowLogN) && !scratch))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
-  return inverse ? dispatch<true>(log_n, in, out, table, consts, rows,
-                                  rows_per_prime, (cudaStream_t)stream)
-                 : dispatch<false>(log_n, in, out, table, consts, rows,
-                                   rows_per_prime, (cudaStream_t)stream);
+  return inverse ? dispatch<true>(log_n, in, out, scratch, table, consts,
+                                  rows, rows_per_prime, (cudaStream_t)stream)
+                 : dispatch<false>(log_n, in, out, scratch, table, consts,
+                                   rows, rows_per_prime, (cudaStream_t)stream);
 }
 
 const char* error_string(int code) {

@@ -17,12 +17,13 @@ Wrapper rules, as for every kernel of the port:
 * a CPU tensor runs the plain PyTorch version (``ref.py``);
 * a CUDA tensor launches the kernel, building it with ``nvcc`` on first
   use, or raises — there is no fallback;
-* device, dtype (int64), shape (N a power of two up to 8192), contiguity,
+* device, dtype (int64), shape (N a power of two up to 32768), contiguity,
   16-byte alignment (the kernel moves rows as 16-byte vectors) and the
   primes are checked before the launch; the C entry point's error code is
   raised on;
 * launches are counted in ``ntt_forward.launches`` and
-  ``ntt_inverse.launches``, incremented only where the kernel launches.
+  ``ntt_inverse.launches``, incremented only where the kernel launches:
+  by two for a row of 32768 (the top-stage kernel and the in-block one).
 
 Work, for a roofline bound: ``BYTES_PER_COEFF`` (an int64 read and an
 int64 write) and ``OPS_PER_BUTTERFLY`` int32 instructions for each of the
@@ -30,6 +31,13 @@ N/2 · log2 N butterflies of a row; the inverse's last stage adds
 ``OPS_PER_SCALE`` per butterfly for the n^-1 scale folded into it. The
 pointwise product between the transforms stays a torch op, as it is a
 host-side combine in the reference (``kernels/ntt/ops.py:50``).
+
+Rows up to ``MAX_ROW_N`` run in one block's shared memory. A row of
+32768 runs as two launches through a scratch tensor the wrapper
+allocates: the top stage over device memory, and the in-block kernel on
+its two halves of 16384 (``csrc/ntt.cu``, note 6). That moves the row
+twice: the bound, 16 B per coefficient, is the function's, not the
+kernel's.
 """
 
 from __future__ import annotations
@@ -46,7 +54,9 @@ from repro_torch.kernels.ntt import ref
 from repro_torch.kernels.ntt.ref import Primes, primes_of
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ntt.cu"
-MAX_N = 8192
+MAX_N = 32768
+#: the longest row one block transforms in shared memory
+MAX_ROW_N = 16384
 
 BYTES_PER_COEFF = 8 + 8
 #: a forward butterfly: the Shoup product (umulhi, mul, mul-add, sub, min)
@@ -59,7 +69,7 @@ OPS_PER_SCALE = 2
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "ntt": (ctypes.c_int, (_P, _P, _P, _P, ctypes.c_longlong,
+    "ntt": (ctypes.c_int, (_P, _P, _P, _P, _P, ctypes.c_longlong,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P)),
     "error_string": (ctypes.c_char_p, (ctypes.c_int,)),
 }
@@ -118,14 +128,17 @@ def _launch(fn, a: torch.Tensor, q: Primes, inverse: bool) -> torch.Tensor:
     rows = a.numel() // n
     table, consts = device_tables(qs, n, inverse, a.device)
     out = torch.empty_like(a)
+    scratch = torch.empty_like(a) if n > MAX_ROW_N and rows else None
     lib = _lib()
     with torch.cuda.device(a.device):
-        rc = lib.ntt(a.data_ptr(), out.data_ptr(), table.data_ptr(),
+        rc = lib.ntt(a.data_ptr(), out.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(),
+                     table.data_ptr(),
                      consts.data_ptr(), rows, rows // len(qs), n, int(inverse),
                      torch.cuda.current_stream(a.device).cuda_stream)
     build.raise_on(rc, name, lib)
     if rows:
-        fn.launches += 1
+        fn.launches += 2 if n > MAX_ROW_N else 1
     return out
 
 

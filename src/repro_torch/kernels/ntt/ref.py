@@ -288,15 +288,23 @@ def kernel_tables(q: int, n: int, inverse: bool
 # for line, for a test to hold against ntt_forward / ntt_inverse. Nothing
 # else calls them.
 
-#: log2 of the coefficients a thread holds, and threads per block, as in
-#: the kernel (kLogR, kBlock)
+#: log2 of the coefficients a thread holds, threads per block, and the
+#: longest row one block transforms, as in the kernel (kLogR, kBlock,
+#: kMaxRowLogN)
 KERNEL_LOG_R = 4
 KERNEL_BLOCK = 128
+KERNEL_MAX_ROW_LOG_N = 14
+
+
+def kernel_split(n: int) -> int:
+    """log2 of the sub-rows a row of ``n`` runs as (the kernel's SPLIT)."""
+    return max(0, n.bit_length() - 1 - KERNEL_MAX_ROW_LOG_N)
 
 
 def kernel_shape(n: int) -> Tuple[int, int, int]:
-    """(log2 R, log2 threads per row, rows per block) of a launch."""
-    log_n = n.bit_length() - 1
+    """(log2 R, log2 threads per row, rows per block) of the in-block
+    launch of a row of ``n`` (of its sub-rows, when it is split)."""
+    log_n = n.bit_length() - 1 - kernel_split(n)
     log_r = min(KERNEL_LOG_R, log_n)
     lt = log_n - log_r
     return log_r, lt, max(1 << lt, KERNEL_BLOCK) >> lt
@@ -332,16 +340,51 @@ def kernel_addresses(n: int, layout: int, t, rib) -> list:
     return out
 
 
+def _butterfly(a, b, w, wp, q, inverse):
+    """The kernel's ``butterfly<INV>`` in emulated uint32 arithmetic."""
+    if not inverse:
+        v = shoup_mul32(b, w, wp, q)
+        d, s = (a - v) & _M32, (a + v) & _M32
+        return np.minimum(s, (s - q) & _M32), np.minimum(d, (d + q) & _M32)
+    d, s = (a + q - b) & _M32, (a + b) & _M32
+    return np.minimum(s, (s - q) & _M32), shoup_mul32(d, w, wp, q)
+
+
+def _butterfly_scaled(a, b, c, q):
+    """The kernel's ``butterfly_scaled``: c holds the prime's constants."""
+    s, d = (a + b) & _M32, (a + q - b) & _M32
+    return (shoup_mul32(s, c[..., 1], c[..., 2], q),
+            shoup_mul32(d, c[..., 3], c[..., 4], q))
+
+
+def _top_stage(data, p, qs, tables, inverse):
+    """The kernel's ``top_stage_kernel`` on (rows, n) uint64 residues of
+    primes ``p`` (rows,): the pairs (j, j + n/2)."""
+    half = data.shape[1] // 2
+    a, b = data[:, :half], data[:, half:]
+    q = np.asarray(qs, np.uint64)[p][:, None]
+    if not inverse:
+        w = np.stack([t[1] for t, _ in tables])[p][:, None]
+        a, b = _butterfly(a, b, w[..., 0], w[..., 1], q, False)
+    else:
+        c = np.stack([c for _, c in tables])[p][:, None]
+        a, b = _butterfly_scaled(a, b, c, q)
+    return np.concatenate([a, b], axis=1)
+
+
 class _Rows:
     """Per-thread state of a model launch: registers ``x`` (R arrays of
-    shape (groups, rows per block, threads per row)) and the row's prime."""
+    shape (groups, rows per block, threads per row)), the row's prime and
+    its twiddle ``root`` (2^SPLIT + its sub-row; 1 for a whole row)."""
 
-    def __init__(self, data, p, qs, tables, n, inverse):
-        self.log_r, self.lt, self.rpb = kernel_shape(n)
+    def __init__(self, data, p, root, qs, tables, n, inverse, split):
+        self.log_r, self.lt, self.rpb = kernel_shape(n << split)
         self.n, self.log_n, self.inverse = n, n.bit_length() - 1, inverse
+        self.split = split
         self.t = np.arange(1 << self.lt, dtype=np.int64)
         self.rib = np.arange(self.rpb, dtype=np.int64)[:, None]
         self.p = p[..., None]                      # (G, rpb, 1)
+        self.root = root[..., None].astype(np.int64)
         self.q = np.asarray(qs, np.uint64)[self.p]
         self.tw = np.stack([t for t, _ in tables])   # (P, n, 2)
         self.consts = np.stack([c for _, c in tables])[self.p]
@@ -356,40 +399,31 @@ class _Rows:
         return w[..., 0], w[..., 1]
 
     def butterfly(self, k, k2, w, wp):
-        a, b, q = self.x[k], self.x[k2], self.q
-        if not self.inverse:
-            v = shoup_mul32(b, w, wp, q)
-            d, s = (a - v) & _M32, (a + v) & _M32
-            self.x[k2] = np.minimum(d, (d + q) & _M32)
-            self.x[k] = np.minimum(s, (s - q) & _M32)
-        else:
-            d, s = (a + q - b) & _M32, (a + b) & _M32
-            self.x[k] = np.minimum(s, (s - q) & _M32)
-            self.x[k2] = shoup_mul32(d, w, wp, q)
+        self.x[k], self.x[k2] = _butterfly(self.x[k], self.x[k2], w, wp,
+                                           self.q, self.inverse)
 
     def butterfly_scaled(self, k, k2):
-        a, b, q, c = self.x[k], self.x[k2], self.q, self.consts
-        s, d = (a + b) & _M32, (a + q - b) & _M32
-        self.x[k] = shoup_mul32(s, c[..., 1], c[..., 2], q)
-        self.x[k2] = shoup_mul32(d, c[..., 3], c[..., 4], q)
+        self.x[k], self.x[k2] = _butterfly_scaled(self.x[k], self.x[k2],
+                                                  self.consts, self.q)
 
     def _order(self):
         r = self.log_r
         return range(r) if self.inverse else range(r - 1, -1, -1)
 
     def io_stages(self, i_lo, i_hi):
-        r, lt, t = self.log_r, self.lt, self.t
+        r, lt, t, root = self.log_r, self.lt, self.t, self.root
         for i in self._order():
             if i < i_lo or i > i_hi:
                 continue
             for k in range(1 << r):
                 if k & (1 << i):
                     continue
-                if self.inverse and i == r - 1:
+                if self.inverse and not self.split and i == r - 1:
                     self.butterfly_scaled(k, k | (1 << i))
                     continue
-                widx = ((1 << (lt + r - 1)) + t + ((k >> 1) << lt) if i == 0
-                        else np.int64((1 << (r - 1 - i)) + (k >> (i + 1))))
+                widx = ((root << (lt + r - 1)) + t + ((k >> 1) << lt)
+                        if i == 0
+                        else (root << (r - 1 - i)) + (k >> (i + 1)))
                 self.butterfly(k, k | (1 << i), *self.twiddle(widx))
 
     def mid_stages(self, i_lo, i_hi, base):
@@ -397,7 +431,8 @@ class _Rows:
         for i in self._order():
             if i < i_lo or i > i_hi:
                 continue
-            wbase = (1 << (self.log_n - 1 - base - i)) + (thigh << (r - 1 - i))
+            wbase = ((self.root << (self.log_n - 1 - base - i))
+                     + (thigh << (r - 1 - i)))
             for k in range(1 << r):
                 if not k & (1 << i):
                     self.butterfly(k, k | (1 << i),
@@ -429,14 +464,23 @@ def kernel_model(a: torch.Tensor, q: Primes, inverse: bool):
     x = _layout(a, qs)
     P, R, n = x.shape
     log_r, lt, rpb = kernel_shape(n)
+    split = kernel_split(n)
+    sub = n >> split
     rows = P * R
-    groups = -(-rows // rpb)
-    data = np.zeros((groups * rpb, n), np.uint64)
-    data[:rows] = x.reshape(rows, n).numpy().astype(np.uint64)
+    tables = [kernel_tables(qq, n, inverse) for qq in qs]
+    prime = np.arange(rows) // R
+    full = x.reshape(rows, n).numpy().astype(np.uint64)
+    if split and not inverse:  # the top stage pass, then the sub-rows
+        full = _top_stage(full, prime, qs, tables, False)
+    subrows = rows << split
+    groups = -(-subrows // rpb)
+    data = np.zeros((groups * rpb, sub), np.uint64)
+    data[:subrows] = full.reshape(subrows, sub)
     row = np.arange(groups * rpb)
-    p = np.minimum(row, rows - 1) // R
-    m = _Rows(data.reshape(groups, rpb, n), p.reshape(groups, rpb), qs,
-              [kernel_tables(qq, n, inverse) for qq in qs], n, inverse)
+    p = (np.minimum(row, subrows - 1) >> split) // R
+    root = (1 << split) + (row & ((1 << split) - 1))
+    m = _Rows(data.reshape(groups, rpb, sub), p.reshape(groups, rpb),
+              root.reshape(groups, rpb), qs, tables, sub, inverse, split)
 
     m.io_stages(0 if inverse else 1, 0 if inverse else log_r - 1)
     if lt > 0:
@@ -459,9 +503,12 @@ def kernel_model(a: torch.Tensor, q: Primes, inverse: bool):
         m.exchange(frm, -1)
     m.io_stages(1 if inverse else 0, log_r - 1 if inverse else 0)
 
-    out = np.zeros((groups, rpb, n), np.uint64)
+    out = np.zeros((groups, rpb, sub), np.uint64)
     for c2 in range(1 << (log_r - 1)):
         e = 2 * m.t + (c2 << (lt + 1))
         out[:, :, e], out[:, :, e + 1] = m.x[2 * c2], m.x[2 * c2 + 1]
-    res = torch.from_numpy(out.reshape(-1, n)[:rows].astype(np.int64))
+    full = out.reshape(-1, sub)[:subrows].reshape(rows, n)
+    if split and inverse:  # the sub-rows, then the scaled top stage
+        full = _top_stage(full, prime, qs, tables, True)
+    res = torch.from_numpy(full.astype(np.int64))
     return res.reshape(a.shape), m.exchanges

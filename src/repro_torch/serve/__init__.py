@@ -1,4 +1,9 @@
 from repro_torch.serve.errors import BundlePoolEmpty
-from repro_torch.serve.private_engine import PrivateRequest, PrivateServeEngine
+from repro_torch.serve.private_engine import (
+    NetPrivateServeEngine,
+    PrivateRequest,
+    PrivateServeEngine,
+)
 
-__all__ = ["PrivateServeEngine", "PrivateRequest", "BundlePoolEmpty"]
+__all__ = ["PrivateServeEngine", "NetPrivateServeEngine", "PrivateRequest",
+           "BundlePoolEmpty"]

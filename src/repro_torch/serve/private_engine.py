@@ -19,9 +19,10 @@ bucket never stall another. Within a bucket, offline refill and online
 runs still serialize — the in-process protocol shares one RNG/stats
 object, and correctness beats concurrency there.
 
-The port of the JAX package's in-process ``PrivateServeEngine``: every
-bucket garbles and evaluates on the engine's ``device``. The pipelined
-two-party engine and the coarse schedule hook wait for later slices.
+The port of the JAX package's ``PrivateServeEngine`` (every bucket
+garbles and evaluates on the engine's ``device``) and of its pipelined
+two-party client, :class:`NetPrivateServeEngine`. The coarse schedule
+hook waits for a later slice.
 """
 
 from __future__ import annotations
@@ -219,3 +220,152 @@ class PrivateServeEngine:
     # ------------------------------------------------------------------
     def stats(self, seq_len: int):
         return self.session(seq_len).stats
+
+
+# ---------------------------------------------------------------------------
+# pipelined two-party serving (client side)
+# ---------------------------------------------------------------------------
+
+
+class NetPrivateServeEngine:
+    """Client-side serving engine over the two-party runtime, pipelined.
+
+    The in-process :class:`PrivateServeEngine` serializes refill and
+    serving within a bucket (one protocol object). This engine instead
+    gives the offline phase a **dedicated endpoint pair**: one
+    :class:`~repro_torch.net.party.GarblerEndpoint` per transport, both
+    backed by one :class:`~repro_torch.net.party.ClientShared` bundle
+    pool, garbling on ``device``. The server side mirrors it with two
+    ``EvaluatorEndpoint`` threads over one ``ServerShared`` store (see
+    :class:`~repro_torch.net.party.PitNetServer`).
+
+    ``refill_async`` therefore streams garbled tables / HE frames /
+    triples on the offline pair while ``serve`` keeps answering requests
+    on the online pair: bundle refill overlaps online serving because
+    each phase has its own protocol endpoint.
+    """
+
+    def __init__(self, offline_transport, online_transport, *,
+                 pool_target: int = 2, seed: int = 0, device="cuda",
+                 timeout: Optional[float] = None):
+        # late import: net.party imports serve.errors, which loads this
+        # package
+        from repro_torch.net.party import ClientShared, GarblerEndpoint
+
+        self.pool_target = pool_target
+        self._shared = ClientShared(seed=seed, device=device)
+        self.offline = GarblerEndpoint(offline_transport, shared=self._shared,
+                                       timeout=timeout)
+        self.online = GarblerEndpoint(online_transport, shared=self._shared,
+                                      timeout=timeout)
+        self.offline.handshake()
+        self.online.handshake()
+        self._refill_lock = threading.Lock()  # deficit computation
+        self._hint_lock = threading.Lock()
+        self._refill_pending = 0  # bundles scheduled, not yet pooled
+        self._prep_ewma_s: Optional[float] = None
+
+    @property
+    def plan(self):
+        return self._shared.plan
+
+    @property
+    def ledger(self):
+        return self._shared.ledger
+
+    def pool_size(self) -> int:
+        return self._shared.pool_size()
+
+    # -- offline pair --------------------------------------------------
+    def _note_refill(self, count: int) -> None:
+        with self._hint_lock:
+            self._refill_pending += count
+
+    def _note_prepped(self, count: int, elapsed_s: float) -> None:
+        with self._hint_lock:
+            self._refill_pending -= count
+            if count > 0 and elapsed_s > 0:
+                per = elapsed_s / count
+                self._prep_ewma_s = (per if self._prep_ewma_s is None
+                                     else 0.7 * self._prep_ewma_s
+                                     + 0.3 * per)
+
+    def retry_after_hint(self) -> Optional[float]:
+        """Refill queue depth × observed per-bundle preprocessing time
+        (wire round trips included); None before the first refill."""
+        with self._hint_lock:
+            if self._prep_ewma_s is None:
+                return None
+            return round(max(self._refill_pending, 1) * self._prep_ewma_s, 3)
+
+    def _preprocess_timed(self, count: int) -> None:
+        # span-backed: the prep EWMA reads the span's duration
+        sp = obs.timer("engine.prep", bundles=count)
+        elapsed = 0.0
+        try:
+            self.offline.preprocess(count)
+            elapsed = sp.close().elapsed_s
+        finally:
+            sp.close()
+            self._note_prepped(count, elapsed)
+
+    def preprocess(self, count: int) -> int:
+        self._note_refill(count)
+        with self._refill_lock:
+            self._preprocess_timed(count)
+        return self.pool_size()
+
+    def maintain(self) -> int:
+        """Top the pool back up to ``pool_target``.
+
+        The deficit is computed under the same lock every engine-driven
+        ``preprocess`` holds, so a maintain racing an explicit-count
+        refill cannot both see the low watermark and overshoot the
+        target (mirrors the in-process engine's bucket-lock rule)."""
+        with self._refill_lock:
+            deficit = self.pool_target - self.pool_size()
+            if deficit > 0:
+                self._note_refill(deficit)
+                self._preprocess_timed(deficit)
+            return self.pool_size()
+
+    def refill_async(self, count: Optional[int] = None) -> threading.Thread:
+        """Refill on a background thread over the *offline* endpoint —
+        online ``serve`` traffic keeps flowing on its own pair."""
+        def work():
+            if count is None:
+                self.maintain()
+            else:
+                self.preprocess(count)
+
+        th = threading.Thread(target=work, daemon=True, name="pit-net-refill")
+        th.start()
+        return th
+
+    # -- online pair ---------------------------------------------------
+    def serve(self, requests: List[PrivateRequest]) -> List[PrivateRequest]:
+        for r in requests:
+            bid = self._shared.take_bundle_id()
+            if bid is None:
+                raise BundlePoolEmpty(
+                    "no preprocessed bundle in the net pool (call "
+                    "preprocess/refill_async)",
+                    retry_after_s=self.retry_after_hint())
+            try:
+                r.result = self.online.run(r.x, bundle_id=bid)
+            except Exception:
+                with self._shared.lock:
+                    if bid in self._shared.bundles:
+                        # e.g. bad request shape: rejected before any
+                        # wire traffic — the (expensive) bundle is still
+                        # fresh on both parties, return it to the pool
+                        self._shared.order.appendleft(bid)
+                raise
+        return requests
+
+    def run(self, x: np.ndarray) -> np.ndarray:
+        return self.serve([PrivateRequest(x=x)])[0].result
+
+    def close(self) -> None:
+        self.offline.close()
+        self.online.close()

@@ -217,7 +217,8 @@ from repro_torch.kernels.ntt import ref as NR  # noqa: E402
 # rows per block below N = 2048)
 @pytest.mark.parametrize("n,rows", [(8, 5), (256, 3), (2048, 7), (8192, 2),
                                     (2, 129), (4, 77), (16, 300), (64, 33),
-                                    (512, 9), (1024, 3), (4096, 5)])
+                                    (512, 9), (1024, 3), (4096, 5),
+                                    (16384, 3), (32768, 2), (32768, 5)])
 def test_ntt_kernel_matches_plain_version(cuda, n, rows):
     qs = NR.find_ntt_primes(30, 3, n)
     rng = np.random.default_rng(n)
@@ -238,8 +239,9 @@ def test_ntt_kernel_matches_plain_version(cuda, n, rows):
         assert torch.equal(f.cpu(), NR.ntt_forward(x, q))
         assert torch.equal(i.cpu(), NR.ntt_inverse(x, q))
         assert torch.equal(NTT.ntt_inverse(f, q).cpu(), x)
+    per_call = 2 if n > NTT.MAX_ROW_N else 1  # top stage + in-block kernel
     assert (NTT.ntt_forward.launches, NTT.ntt_inverse.launches) == \
-        (len(cases), 2 * len(cases))
+        (per_call * len(cases), 2 * per_call * len(cases))
 
 
 def test_ntt_wrapper_refusals(cuda):
@@ -250,7 +252,7 @@ def test_ntt_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         NTT.ntt_forward(x.t().contiguous().t(), q)
     with pytest.raises(ValueError, match="power of two"):
-        NTT.ntt_forward(torch.zeros((1, 16384), dtype=torch.int64,
+        NTT.ntt_forward(torch.zeros((1, 2 * NTT.MAX_N), dtype=torch.int64,
                                     device=cuda), q)
     with pytest.raises(ValueError, match="2\\^31"):
         NTT.ntt_forward(x, 2 ** 31 + 513)
@@ -311,3 +313,16 @@ def test_he_linear_offline_on_card_matches_cpu(cuda, d_in, d_out):
     assert all(torch.equal(x, y) for x, y in zip(k[:3], c[:3]))
     assert all(np.array_equal(x, y) for x, y in zip(k[3:6], c[3:6]))
     assert k[6] == c[6]
+
+
+def test_protocol_keygen_at_16384_on_card_matches_cpu(cuda):
+    """A ring of 16384 (above one block's longest row before the split
+    path) generates the same keys on the card as on the CPU."""
+    keys = []
+    for dev in (cuda, "cpu"):
+        NTT.reset_launches()
+        p = PiTProtocol(PrivacyConfig(he_poly_n=16384), seed=5, device=dev)
+        torch.cuda.synchronize()
+        assert (NTT.ntt_forward.launches > 0) == (dev == cuda)
+        keys.append((p.sk.cpu(), *(x.cpu() for x in p.pk)))
+    assert all(torch.equal(x, y) for x, y in zip(*keys))

@@ -33,7 +33,7 @@ def test_parameter_search_matches_reference():
         assert np.array_equal(np.asarray(want, np.int64), got)
 
 
-@pytest.mark.parametrize("n", [8, 256, 2048])
+@pytest.mark.parametrize("n", [8, 256, 2048, 16384, 32768])
 def test_forward_inverse_match_reference_at_30_bit_primes(n):
     qs = JR.find_ntt_primes(30, 3, n)
     a = _residues(n, qs, (2, n))  # (P, rows, n): one batch over 3 primes
@@ -108,8 +108,10 @@ def test_rejects_what_the_kernel_cannot_take():
 # ---------------------------------------------------------------------------
 
 HE_PRIMES = (1073692673, 1073668097, 1073655809)
-#: the largest NTT primes below 2^31 at N = 8, 2048, 8192
-Q31 = {8: 2147483489, 2048: 2147389441, 8192: 2147352577}
+#: the largest NTT primes below 2^31 at N = 8, 2048, 8192 (and at 16384
+#: and 32768, where it is the same prime as at 8192)
+Q31 = {8: 2147483489, 2048: 2147389441, 8192: 2147352577,
+       16384: 2147352577, 32768: 2147352577}
 
 
 def test_named_primes_are_the_parameter_search_s():
@@ -151,14 +153,16 @@ def test_shoup_product_is_exact_in_32_bits(q):
         assert [int(v) for v in got] == [int(x) * int(w) % q for x in a]
 
 
-@pytest.mark.parametrize("n", [2, 8, 256, 2048, 8192])
+@pytest.mark.parametrize("n", [2, 8, 256, 2048, 8192, 16384, 32768])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_schedule_model_matches_plain_version(n, inverse):
     """The model of csrc/ntt.cu (its rounds, register and thread index
     mapping, swizzled exchanges, twiddle indices and 32-bit arithmetic)
     against the plain version, bit for bit: the HE-sized primes over a
     row count that is not a multiple of a block's rows, and the largest
-    prime below 2^31 with every residue at q - 1 in one row."""
+    prime below 2^31 with every residue at q - 1 in one row. At N = 32768
+    the model also replays the top-stage pass and the two sub-rows of
+    16384, whose twiddles come from the whole row's table."""
     qs = TR.find_ntt_primes(30, 3, n)
     _, _, rpb = TR.kernel_shape(n)
     a = _residues(n + inverse, qs, (rpb + 1, n))
@@ -172,10 +176,11 @@ def test_kernel_schedule_model_matches_plain_version(n, inverse):
     assert torch.equal(got, plain(torch.from_numpy(b), q31))
     # stages merged in registers: 16 per thread from n = 16, so a row
     # of 2048 makes 3 exchanges instead of 11 passes
-    assert len(exchanges) == {2: 0, 8: 0, 256: 2, 2048: 3, 8192: 4}[n]
+    assert len(exchanges) == {2: 0, 8: 0, 256: 2, 2048: 3, 8192: 4,
+                              16384: 4, 32768: 4}[n]
 
 
-@pytest.mark.parametrize("n", [512, 2048, 8192])
+@pytest.mark.parametrize("n", [512, 2048, 8192, 16384])
 def test_kernel_exchanges_are_bank_conflict_free(n):
     log_r, lt, rpb = TR.kernel_shape(n)
     threads = rpb << lt
@@ -189,3 +194,18 @@ def test_kernel_exchanges_are_bank_conflict_free(n):
             for words in TR.kernel_addresses(n, layout, t, rib):
                 banks = np.broadcast_to(words, t.shape).reshape(-1, 32) & 31
                 assert all(len(set(w)) == 32 for w in banks), (n, layout)
+
+
+def test_rows_longer_than_a_block_split_in_two():
+    """N = 32768 runs as a top-stage pass and two sub-rows of 16384 whose
+    twiddle roots are 2 and 3 (the twiddle trap: a sub-row is not an NTT
+    of its own length, so the plain NTT of length 16384 differs)."""
+    assert [TR.kernel_split(n) for n in (8192, 16384, 32768)] == [0, 0, 1]
+    assert TR.kernel_shape(32768) == TR.kernel_shape(16384) == (4, 10, 1)
+    assert TN.MAX_N == 32768 and TN.MAX_ROW_N == 16384
+    qs = TR.find_ntt_primes(30, 3, 32768)
+    a = torch.from_numpy(_residues(5, qs, (1, 32768)))
+    got, _ = TR.kernel_model(a, qs, False)
+    assert torch.equal(got, TR.ntt_forward(a, qs))
+    half = TR.ntt_forward(a[..., :16384].contiguous(), qs)
+    assert not torch.equal(got[..., :16384], half)
