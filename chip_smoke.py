@@ -13,9 +13,11 @@ Phases, each asserting (any failure exits non-zero and prints no result):
 3. kernels  — each kernel's wrapper on CUDA tensors at the shapes its path
               gives it, plus a ragged size, against its plain PyTorch
               version on the same inputs: bit-exact; kernel time (device
-              time from ``torch.profiler``), the plain version's time and
-              the roofline bound; the NTT also at the HE linear's launch
-              shapes and at a 31-bit prime, timed warm and L2-cold;
+              time from ``torch.profiler``) L2-cold (launches rotating over
+              input and output buffers that pass ``COLD_BYTES`` between two
+              uses) and warm (20 launches on one input), the plain
+              version's time and the roofline bound; the NTT also at the
+              HE linear's launch shapes and at a 31-bit prime;
 4. parity   — the GC executor (GeLU netlist, I=64) and a private
               transformer session (d=64, 4 heads, d_ff=128, 1 layer, S=4)
               on ``cuda`` against the same on ``cpu``: bit-exact;
@@ -55,13 +57,25 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               ``InProcPipe`` (wire v2, IKNP) and over loopback TCP (wire
               v1), ``preprocess(requests)`` and ``requests`` runs each;
               outputs and per-tag ledgers (both endpoints) equal to the
-              in-process session at the same wire version; counters zeroed
+              in-process session at the same wire version (the v2 check
+              session, untimed, takes the v2 endpoints' plans instead of
+              building its own); counters zeroed
               before the endpoints are built, and the walk kernels, label
               select and the NTT must have launched; offline and online
               seconds, MB per tag, device-to-host and host-to-device copy
               seconds (spans ``net.d2h`` / ``net.h2d``) and the busy share
               of a warm run;
-11. eager   — ``forward_private`` on the card at the serving phase's
+11. gateway — ``PitGateway`` on one loopback ``TcpListener`` over the
+              ``net`` phase's v1 server state, at the same model and
+              inputs: a ``gateway_client`` and a ``ResilientClient`` (its
+              online leg reset mid-run: burn, resume, fresh bundle) run
+              concurrently, a third client and a prep past the pool cap
+              are shed with retry-after hints; outputs equal the serving
+              phase's, ledgers per session, one garbling slab per
+              netlist, the burn/resume accounting identity; the walk
+              kernels, label select and the NTT launched, no per-chunk
+              level kernel (see ``phase_gateway``);
+12. eager   — ``forward_private`` on the card at the serving phase's
               model (BERT-base width, same weights, seed and first input),
               equal to that phase's first output bit for bit; the walk
               kernels, label select and the NTT must have launched.
@@ -74,7 +88,8 @@ the launch shapes of that ring's HE linear) and
 
 The line before the last is the ``kernels`` JSON summary of all eight
 kernels (``launches`` from serving, or from ``gates`` off that path, and
-``launches_net`` / ``launches_eager`` from phases 10 and 11); the last line is ``{"ok": true, "device": {...}}``. ``--json
+``launches_net`` / ``launches_gateway`` / ``launches_eager`` from phases
+10 to 12); the last line is ``{"ok": true, "device": {...}}``. ``--json
 PATH`` also writes every measurement (per-shape kernel times, phase times,
 span totals) to PATH. ``--ntt-only`` runs phases 1, 2 and the NTT's part
 of 3 and stops (about 20 s), to compare two versions of the NTT in one
@@ -252,6 +267,7 @@ def phase_kernels(args):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(args.seed)
+    dgen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     # the serving path's largest chunks: GeLU lanes (and_width 8) over one
     # request's instances (evaluate) and over the preprocessed batch
     # (garble); a LayerNorm-like chunk; a ragged G
@@ -275,22 +291,39 @@ def phase_kernels(args):
         for kname, e in err.items():
             assert e == 0, f"{kname} kernel != plain version at G={G}: {e}"
         line = {"G": G}
-        for kname, fn, plain, kernel_sym, nbytes, nops in (
+
+        def cold_level(garble):
+            ops = torch.randint(0, 4, (G,), dtype=torch.int32,
+                                generator=dgen, device=DEVICE)
+            w = [_device_words(dgen, G, 4) for _ in range(4)]
+            tw = _device_words(dgen, G)
+            if garble:
+                r = _device_words(dgen, 1, 4)
+                r[:, 0] |= 1
+                return ops, w[0], w[1], r.expand(G, 4).contiguous(), tw
+            return ops, w[0], w[1], w[2], w[3], tw
+
+        for kname, fn, plain, kernel_sym, nbytes, nops, cold_fn, garble in (
                 ("eval_level", lambda: LE.eval_level(*ev),
                  lambda: ref.eval_level(*ev), "eval_level_kernel",
-                 LE.EVAL_BYTES, LE.EVAL_OPS),
+                 LE.EVAL_BYTES, LE.EVAL_OPS, LE.eval_level, False),
                 ("garble_level", lambda: LE.garble_level(*ga),
                  lambda: ref.garble_level(*ga), "garble_level_kernel",
-                 LE.GARBLE_BYTES, LE.GARBLE_OPS)):
+                 LE.GARBLE_BYTES, LE.GARBLE_OPS, LE.garble_level, True)):
             bound, by = _bound_ms(G, nbytes, nops)
-            line[kname] = dict(max_abs_err=err[kname],
-                               **_timed(fn, plain, kernel_sym),
-                               bound_ms=bound, bound_by=by)
+            row = _cold_row(_timed(fn, plain, kernel_sym),
+                            _cold_timed(lambda: cold_level(garble), cold_fn,
+                                        G * nbytes, kernel_sym))
+            line[kname] = dict(max_abs_err=err[kname], **row,
+                               bound_ms=bound, bound_by=by,
+                               bound_share=bound / row["ms"])
         rows[G] = line
         print(f"[kernels] G={G}: bit-exact; " + "; ".join(
-            f"{k} {line[k]['ms']:.4f} ms (call {line[k]['call_ms']:.4f}, "
-            f"plain {line[k]['plain_ms']:.3f}, bound {line[k]['bound_ms']:.4f}"
-            f" by {line[k]['bound_by']})"
+            f"{k} cold {line[k]['ms']:.5f} ms ({line[k]['cold_buffers']} "
+            f"buffers), warm {line[k]['ms_warm']:.5f} (call "
+            f"{line[k]['call_ms']:.4f}), plain {line[k]['plain_ms']:.3f}, "
+            f"bound {line[k]['bound_ms']:.5f} by {line[k]['bound_by']} "
+            f"({100 * line[k]['bound_share']:.0f}% of it when cold)"
             for k in ("eval_level", "garble_level")))
     del v, ev, ga, got, want, gg, gw
     torch.cuda.empty_cache()
@@ -299,9 +332,20 @@ def phase_kernels(args):
 
 def _print_rows(tag, rows):
     for r in rows:
-        print(f"[kernels] {tag} {r['shape']}: bit-exact; {r['ms']:.4f} ms "
-              f"(call {r['call_ms']:.4f}, plain {r['plain_ms']:.3f}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        print(f"[kernels] {tag} {r['shape']}: bit-exact; cold {r['ms']:.5f}"
+              f" ms ({r['cold_buffers']} buffers), warm {r['ms_warm']:.5f} "
+              f"(call {r['call_ms']:.4f}), plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']} "
+              f"({100 * r['bound_share']:.0f}% of it when cold)")
+
+
+def _cold_row(warm, cold):
+    """A kernel's timing row: the L2-cold time (``_cold_timed``) as
+    ``ms``, the warm one beside it."""
+    ms, timing, k = cold
+    return dict(ms=ms, timing=timing, cold_buffers=k, ms_warm=warm["ms"],
+                timing_warm=warm["timing"], call_ms=warm["call_ms"],
+                plain_ms=warm["plain_ms"])
 
 
 def _cold_ms(launch_all, launches, kernel_sym, reps=5):
@@ -317,6 +361,36 @@ def _cold_ms(launch_all, launches, kernel_sym, reps=5):
     if ms is not None:
         return ms, "profiler"
     return _ms_events(launch_all, reps) / launches, "events"
+
+
+def _cold_timed(make_args, fn, nbytes, kernel_sym):
+    """L2-cold device time per launch of ``fn(*args)``: launches rotate
+    over ``k`` argument sets made by ``make_args()``, ``k`` chosen so that
+    more than ``COLD_BYTES`` (inputs read and outputs written, ``nbytes``
+    per launch) pass between two uses of a set. Returns (ms, timing, k)."""
+    import math
+
+    import torch
+
+    k = max(2, math.ceil(COLD_BYTES / nbytes))
+    sets = [make_args() for _ in range(k)]
+    outs = []
+
+    def launch_all():
+        nonlocal outs
+        outs = [fn(*a) for a in sets]
+
+    ms, timing = _cold_ms(launch_all, k, kernel_sym)
+    del sets, outs
+    torch.cuda.empty_cache()
+    return ms, timing, k
+
+
+def _device_words(gen, *shape):
+    import torch
+
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                         generator=gen, device=DEVICE)
 
 
 def phase_kernels_ntt(args, n=None):
@@ -501,6 +575,7 @@ def phase_kernels_gates(args, gates):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(args.seed + 1)
+    dgen = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
     hg, err = [], {"garble_and": 0, "eval_and": 0, "select_labels": 0}
     for G in (gates, 12345):
         v = _level_inputs(G, gen, dev)
@@ -514,17 +589,29 @@ def phase_kernels_gates(args, gates):
         err["eval_and"] = max(err["eval_and"], e2)
         if G != gates:
             continue
-        for name, fn, plain, sym, nb, no in (
+        def cold_gates(garble, G=G):
+            w = [_device_words(dgen, G, 4) for _ in range(4)]
+            tw = _device_words(dgen, G)
+            if garble:
+                r = _device_words(dgen, 1, 4)
+                r[:, 0] |= 1
+                return w[0], w[1], r.expand(G, 4).contiguous(), tw
+            return w[0], w[1], w[2], w[3], tw
+
+        for name, fn, plain, sym, nb, no, kern, garble in (
                 ("garble_and", lambda: HK.garble_gates(*ga),
                  lambda: HR.garble_and_gates(*ga), "garble_and_kernel",
-                 HK.GARBLE_BYTES, HK.GARBLE_OPS),
+                 HK.GARBLE_BYTES, HK.GARBLE_OPS, HK.garble_gates, True),
                 ("eval_and", lambda: HK.eval_gates(*ev),
                  lambda: HR.eval_and_gates(*ev), "eval_and_kernel",
-                 HK.EVAL_BYTES, HK.EVAL_OPS)):
+                 HK.EVAL_BYTES, HK.EVAL_OPS, HK.eval_gates, False)):
             bound, by = _bound_ms(G, nb, no)
-            hg.append(dict(name=name, shape=f"{name} G={G}", G=G,
-                           **_timed(fn, plain, sym), bound_ms=bound,
-                           bound_by=by))
+            row = _cold_row(_timed(fn, plain, sym),
+                            _cold_timed(lambda: cold_gates(garble), kern,
+                                        G * nb, sym))
+            hg.append(dict(name=name, shape=f"{name} G={G}", G=G, **row,
+                           bound_ms=bound, bound_by=by,
+                           bound_share=bound / row["ms"]))
     _print_rows("halfgate", hg)
 
     pc = PrivacyConfig()
@@ -549,14 +636,25 @@ def phase_kernels_gates(args, gates):
         if not main:
             continue
         G = lead[0] * lead[1]
+        nbytes = G * LS.BYTES_PER_ROW + lead[0] * 16
         bound, by = _bound_ms(G, LS.BYTES_PER_ROW, LS.OPS_PER_ROW,
                               extra_bytes=lead[0] * 16)
+
+        def cold_select(lead=lead):
+            return (_device_words(dgen, *lead, 4),
+                    _device_words(dgen, lead[0], 1, 4),
+                    torch.randint(0, 2, lead, dtype=torch.int32,
+                                  generator=dgen, device=DEVICE))
+
+        row = _cold_row(_timed(lambda: LS.select_labels(w0, r, bits),
+                               lambda: LR.select_labels(w0, r, bits),
+                               "select_labels_kernel"),
+                        _cold_timed(cold_select, LS.select_labels, nbytes,
+                                    "select_labels_kernel"))
         ls.append(dict(name="select_labels",
                        shape=f"select_labels I={lead[0]} x {lead[1]} wires",
-                       G=G, **_timed(lambda: LS.select_labels(w0, r, bits),
-                                     lambda: LR.select_labels(w0, r, bits),
-                                     "select_labels_kernel"),
-                       bound_ms=bound, bound_by=by))
+                       G=G, **row, bound_ms=bound, bound_by=by,
+                       bound_share=bound / row["ms"]))
     _print_rows("label_select", ls)
     return hg, ls, err
 
@@ -1192,18 +1290,23 @@ def phase_net(args, serve, serve_ys):
     assert not any(chunk_launches.values()), chunk_launches
     cli.close()
 
+    # the check session is untimed: it takes the netlists and level plans
+    # the two v2 endpoints built (the garbler's at the preprocess batch,
+    # the server's at one request) instead of building them a third time
     t0 = time.perf_counter()
     sess = model.compile_session(S, seed=args.seed, wire_version=2,
                                  device=DEVICE)
+    _share_plans(sess.protocol, cli.shared.protocol, srv.shared.protocol)
     bundles = sess.preprocess(args.requests)
     want2 = np.stack([sess.run(x, b) for x, b in zip(xs, bundles)])
     t_sess = time.perf_counter() - t0
     check("v2 pipe", ys2, v2, want2, sess.stats.comm_snapshot())
     print(f"[net] v2: outputs and ledgers == in-process v2 session "
-          f"({t_sess:.2f} s)", flush=True)
-    del sess, bundles
+          f"({t_sess:.2f} s, plans shared with the v2 endpoints)",
+          flush=True)
+    del sess, bundles, cli, srv
 
-    v1, ys1, cli1, _, (loop, lst) = two_party(1, tcp=True)
+    v1, ys1, cli1, srv1, (loop, lst) = two_party(1, tcp=True)
     check("v1 tcp", ys1, v1, serve_ys, serve["comm"])
     assert v1["ledger"]["client"]["seed_stream_segs"] == 0
     cli1.close()
@@ -1241,8 +1344,329 @@ def phase_net(args, serve, serve_ys):
               f"{warm['device_busy_s']:.3f} s "
               f"({100 * warm['busy_share']:.2f}%)")
     print(f"[net] in-process v2 session for the check: {t_sess:.2f} s")
-    return {"v2_pipe": v2, "v1_tcp": v1, "launches": launches,
-            "level_launches": chunk_launches, "session_v2_s": t_sess}
+    return ({"v2_pipe": v2, "v1_tcp": v1, "launches": launches,
+             "level_launches": chunk_launches, "session_v2_s": t_sess},
+            model, xs, srv1.shared)
+
+
+def _share_plans(dst, *srcs):
+    """Hand the protocol ``dst`` the netlists, level plans and executors
+    that the protocols ``srcs`` built: the first source's netlist objects
+    where ``dst`` has none, and every plan and executor it lacks merged
+    into the ones it has (all build the same circuits from the same
+    parameters, so plans interoperate). For untimed checks only: a timed
+    party builds its own."""
+    for src in srcs:
+        for name, net in src._netlist_cache.items():
+            mine = dst._netlist_cache.setdefault(name, net)
+            if mine is net:
+                continue
+            plans = getattr(mine, "_level_plans", None)
+            if plans is None:
+                plans = mine._level_plans = {}
+            for key, plan in getattr(net, "_level_plans", {}).items():
+                have = plans.setdefault(key, plan)
+                if have is not plan:
+                    for ekey, exe in plan._executors.items():
+                        have._executors.setdefault(ekey, exe)
+
+
+#: the transport op of the resilient client's online leg at which the
+#: gateway phase resets it: inside its first run, after the session's
+#: base OT, so the server's endpoint dies mid-run and burns the bundle
+GATEWAY_RESET_OP = 8
+GATEWAY_TIMEOUT_S = 1200
+
+
+def _gateway_client(role, port, seed, x, device, conn):
+    """One client of the ``gateway`` phase, in a process of its own as a
+    deployment runs it (spawned: it builds its own protocol and garbling
+    plans on its own core). ``role`` is ``"gateway_client"`` (a pipelined
+    ``NetPrivateServeEngine``: ``preprocess(1)``, a ``preprocess(2)`` that
+    the pool cap sheds, ``run(x)``) or ``"resilient"`` (a
+    ``ResilientClient`` whose online leg is reset at
+    ``GATEWAY_RESET_OP``: ``preprocess(1)``, ``run(x)``). Sends
+    ``("connected", token)`` once admitted, then ``("result", dict)`` or
+    ``("error", text)`` on ``conn``."""
+    import traceback
+
+    try:
+        conn.send(("result", _gateway_client_run(role, port, seed, x, device,
+                                                 conn)))
+    except BaseException as e:  # reported to the parent, which fails
+        conn.send(("error", f"{type(e).__name__}: {e}\n"
+                            + traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def _gateway_client_run(role, port, seed, x, device, conn):
+    import torch
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
+    from repro_torch.net import (Deadlines, Fault, FaultSchedule,
+                                 FaultyTransport, ResilientClient,
+                                 RetryPolicy, TcpTransport)
+    from repro_torch.serve import BundlePoolEmpty, gateway_client
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    for mod in (LE, NTT, LS):
+        mod.reset_launches()
+    out = {"role": role}
+    t0 = time.perf_counter()
+    if role == "gateway_client":
+        cli = gateway_client("127.0.0.1", port, seed=seed, device=device,
+                             timeout=GATEWAY_TIMEOUT_S)
+        ledger, token = cli.ledger, cli._shared.client_token
+    else:
+        fts = []
+
+        def connect():
+            ft = FaultyTransport(
+                TcpTransport.connect("127.0.0.1", port),
+                FaultSchedule((Fault(GATEWAY_RESET_OP, "reset"),)
+                              if len(fts) == 1 else ()))
+            fts.append(ft)
+            return ft
+
+        cli = ResilientClient(connect, seed=seed, device=device,
+                              deadlines=Deadlines.uniform(GATEWAY_TIMEOUT_S),
+                              policy=RetryPolicy(attempts=4, base_s=0.05))
+        cli.handshake()
+        ledger, token = cli.shared.ledger, cli.shared.client_token
+    out["connect_s"] = time.perf_counter() - t0
+    conn.send(("connected", token))
+    t0 = time.perf_counter()
+    cli.preprocess(1)
+    sync()
+    out["offline_s"] = time.perf_counter() - t0
+    if role == "gateway_client":
+        c2s = ledger.offline.client_to_server
+        try:
+            cli.preprocess(2)
+        except BundlePoolEmpty as e:
+            out["shed"] = (e.scope, e.retry_after_s)
+        # shed before the expensive work: no offline PROTO bytes move
+        out["shed_c2s_bytes"] = ledger.offline.client_to_server - c2s
+    t0 = time.perf_counter()
+    out["y"] = cli.run(x)
+    sync()
+    out["online_s"] = time.perf_counter() - t0
+    out["ledger"] = {ph: dict(getattr(ledger, ph).by_tag)
+                     for ph in ("offline", "online")}
+    out["launches"] = {
+        "garble_walk": LE.garble_walk.launches,
+        "eval_walk": LE.eval_walk.launches,
+        "select_labels": LS.select_labels.launches,
+        "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches,
+        "eval_level": LE.eval_level.launches,
+        "garble_level": LE.garble_level.launches}
+    if role == "resilient":
+        out["stats"] = cli.stats()
+        out["injected"] = fts[1].injected
+    cli.close()
+    return out
+
+
+def phase_gateway(args, model, xs, shared, serve_ys):
+    """The multi-client front door on the card at the serving phase's
+    model and inputs: a ``PitGateway`` behind one ``TcpListener`` on
+    127.0.0.1, over the ``net`` phase's v1 TCP server's ``ServerShared``
+    (its plan, protocol and evaluate-side level plans; the sessions
+    negotiate wire v2), with ``max_sessions=2``, ``pool_cap=2`` and a
+    lease. Two client sessions run at once, each client in a process of
+    its own (``_gateway_client``) that builds its own protocol and
+    garbling plans: a ``gateway_client`` (``run(xs[0])``, with a
+    ``preprocess(2)`` past the pool cap that is shed before anything is
+    garbled) and a ``ResilientClient`` (``run(xs[1])``) whose online leg
+    is reset at transport op ``GATEWAY_RESET_OP``: it burns that bundle,
+    resumes the same session, preprocesses a fresh bundle and runs again.
+    A third client is shed at hello. Checked: outputs equal the serving
+    phase's bit for bit (the resumed run's too); each session's per-tag
+    ledger equals its client's (for the resilient one offline, and online
+    up to the run the reset cut); one new garbling slab per distinct
+    netlist, used by every admitted prep of both sessions; sheds with
+    retry-after hints; the server's burn and resume once it has seen the
+    drop, with ``prepped == consumed + outstanding + returned + burned``;
+    and, with the launch counters zeroed (in every process) before the
+    endpoints are built, ``garble_walk``, ``eval_walk``, ``select_labels``
+    and the NTT launched (the clients' key generation) and no per-chunk
+    level kernel."""
+    import multiprocessing
+
+    import numpy as np
+    from repro_torch.kernels.label_select import label_select as LS
+    from repro_torch.kernels.level_eval import level_eval as LE
+    from repro_torch.kernels.ntt import ntt as NTT
+    from repro_torch.net import TcpListener
+    from repro_torch.serve import BundlePoolEmpty, PitGateway, gateway_client
+
+    timeout = GATEWAY_TIMEOUT_S
+    S = args.seq
+    for mod in (LE, NTT, LS):
+        mod.reset_launches()
+    t_phase = time.perf_counter()
+    # pool_cap 2: the resilient client's fresh prep is admitted while the
+    # server still counts the cut run in flight (1 + 1 <= 2)
+    gw = PitGateway(model, S, device=DEVICE, shared=shared, max_sessions=2,
+                    pool_cap=2, lease_s=float(timeout))
+    lst = TcpListener("127.0.0.1", 0)
+    loop = gw.serve_listener(lst, timeout=timeout)
+    slabs_before = dict(shared.gc_cache.summary()["by_key"])
+
+    ctx = multiprocessing.get_context("spawn")
+    roles = {"gateway_client": (args.seed + 11, xs[0]),
+             "resilient": (args.seed + 12, xs[1])}
+    procs, pipes, got = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for role, (seed, x) in roles.items():
+            r, w = ctx.Pipe(duplex=False)
+            procs[role] = ctx.Process(
+                target=_gateway_client, name=f"gateway-{role}",
+                args=(role, lst.port, seed, x, DEVICE, w))
+            procs[role].start()
+            w.close()
+            pipes[role] = r
+
+        def receive(role, what):
+            deadline = time.monotonic() + timeout
+            while not pipes[role].poll(1.0):
+                assert procs[role].is_alive() or pipes[role].poll(0), \
+                    f"gateway {role} process died ({procs[role].exitcode})"
+                assert time.monotonic() < deadline, f"gateway {role} hung"
+            kind, payload = pipes[role].recv()
+            if kind == "error":
+                raise AssertionError(f"gateway {role}: {payload}")
+            assert kind == what, (role, kind)
+            return payload
+
+        tokens = {role: receive(role, "connected") for role in roles}
+        # both sessions are live: a third client is shed at hello
+        shed = {}
+        try:
+            gateway_client("127.0.0.1", lst.port, seed=args.seed + 13,
+                           device=DEVICE, timeout=60)
+        except BundlePoolEmpty as e:
+            shed["session"] = (e.scope, e.retry_after_s)
+        got = {role: receive(role, "result") for role in roles}
+        t_sessions = time.perf_counter() - t0
+    finally:
+        for role, p in procs.items():
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    assert all(p.exitcode == 0 for p in procs.values()), \
+        {r: p.exitcode for r, p in procs.items()}
+    plain, resil = got["gateway_client"], got["resilient"]
+    shed["prep"] = plain.get("shed")
+    for scope in ("session", "prep"):
+        assert shed[scope] is not None and shed[scope][0] == scope, shed
+        assert shed[scope][1] > 0, shed
+    assert plain["shed_c2s_bytes"] == 0, plain["shed_c2s_bytes"]
+    assert np.array_equal(plain["y"], serve_ys[0]), \
+        "gateway_client output != serving phase's"
+    assert np.array_equal(resil["y"], serve_ys[1]), \
+        "resumed run's output != serving phase's"
+    assert resil["injected"] == [(GATEWAY_RESET_OP, "reset")], \
+        resil["injected"]
+    cst = resil["stats"]
+    assert (cst["bundles_burned"], cst["resume_handshakes"]) == (1, 1), cst
+
+    # the server counts the burn once its endpoint has seen the drop
+    deadline = time.monotonic() + 300
+    while gw.stats()["bundles_burned"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    st = gw.stats()
+    assert st["bundles_burned"] == 1 and st["sessions_resumed"] == 1, st
+    assert st["sessions_admitted"] == 2 and st["sessions_shed"] == 1, st
+    assert st["prep_sheds"] == 1 + cst["sheds_honored"], (st, cst)
+    assert st["bundles_prepped"] == (
+        st["bundles_consumed"] + st["bundles_outstanding"]
+        + st["bundles_returned"] + st["bundles_burned"]), st
+    assert (st["bundles_prepped"], st["bundles_consumed"]) == (3, 2), st
+
+    # per-session ledgers, server side == client side
+    by_token = {s["client"]: s for s in st["sessions"]}
+    srv_plain = by_token[tokens["gateway_client"]]
+    for phase in ("offline", "online"):
+        assert srv_plain[f"{phase}_by_tag"] == plain["ledger"][phase], phase
+    srv_resil = by_token[tokens["resilient"]]
+    assert srv_resil["offline_by_tag"] == resil["ledger"]["offline"]
+    # online: the retried run complete on both sides, plus part of the cut
+    # one: between one and two clean runs' bytes per tag
+    clean = plain["ledger"]["online"]
+    for side in (srv_resil["online_by_tag"], resil["ledger"]["online"]):
+        assert set(side) == set(clean), set(side) ^ set(clean)
+        for tag, b in side.items():
+            assert clean[tag] <= b <= 2 * clean[tag], (tag, b, clean[tag])
+
+    # one new slab per distinct netlist, shared by every admitted prep
+    cache = shared.gc_cache.summary()
+    new = {k: v for k, v in cache["by_key"].items() if k not in slabs_before}
+    nets = {k.split("/")[0] for k in new}
+    assert len(new) == len(nets) == cache["distinct_netlists"], new
+    assert set(new.values()) == {st["bundles_prepped"]}, new
+
+    # launches in every process: the server (here) and both clients
+    server = {"garble_walk": LE.garble_walk.launches,
+              "eval_walk": LE.eval_walk.launches,
+              "select_labels": LS.select_labels.launches,
+              "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches,
+              "eval_level": LE.eval_level.launches,
+              "garble_level": LE.garble_level.launches}
+    total = {k: server[k] + plain["launches"][k] + resil["launches"][k]
+             for k in server}
+    launches = {k: total[k] for k in ("garble_walk", "eval_walk",
+                                      "select_labels", "ntt")}
+    chunk_launches = {k: total[k] for k in ("eval_level", "garble_level")}
+    assert all(v > 0 for v in launches.values()), launches
+    assert not any(chunk_launches.values()), chunk_launches
+    metrics = gw.metrics()
+
+    loop.stop()
+    lst.close()
+    gw.close()
+    secs = {f"{role} {k}": got[role][k] for role in roles
+            for k in ("connect_s", "offline_s", "online_s")}
+    res = {"sessions_s": t_sessions,
+           "phase_s": time.perf_counter() - t_phase, "seconds": secs,
+           "resilient": cst, "sheds": shed, "launches": launches,
+           "level_launches": chunk_launches,
+           "launches_by_process": {"server": server,
+                                   "gateway_client": plain["launches"],
+                                   "resilient": resil["launches"]},
+           "stats": {k: v for k, v in st.items() if k != "sessions"},
+           "metrics": metrics, "new_slabs": new,
+           "ledgers_mb": {
+               who: {ph: s[f"{ph}_bytes"] / 1e6
+                     for ph in ("offline", "online")}
+               for who, s in (("gateway_client", srv_plain),
+                              ("resilient", srv_resil))}}
+    print(f"[gateway] 2 concurrent sessions at BERT-base width over one "
+          f"listener (wire v2), each client in its own process: outputs == "
+          f"serving phase's bit for bit, the resumed run included; both "
+          f"sessions {t_sessions:.2f} s")
+    print("[gateway] seconds: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    print(f"[gateway] sheds (scope, retry_after_s): {shed}; resilient "
+          f"client {cst}; gateway burned {st['bundles_burned']}, resumed "
+          f"{st['sessions_resumed']}, prepped {st['bundles_prepped']} == "
+          f"consumed {st['bundles_consumed']} + outstanding "
+          f"{st['bundles_outstanding']} + returned "
+          f"{st['bundles_returned']} + burned {st['bundles_burned']}")
+    print(f"[gateway] new garbling slabs {new}; launches {launches} (by "
+          f"process {res['launches_by_process']}); per-chunk level kernels "
+          f"{chunk_launches}")
+    print(f"[gateway] metrics: {json.dumps(metrics['counters'])} "
+          f"{json.dumps(metrics['gauges'])}")
+    return res
 
 
 def phase_eager(args, serve_ys):
@@ -1360,8 +1784,11 @@ def main(argv=None) -> int:
     prof = phase_profile(engine, x0, args.seq)
     del engine
     lap("serving, walks, profile")
-    net = phase_net(args, serve, serve_ys)
+    net, model, xs, shared = phase_net(args, serve, serve_ys)
     lap("net")
+    gateway = phase_gateway(args, model, xs, shared, serve_ys)
+    del model, shared
+    lap("gateway")
     eager = phase_eager(args, serve_ys)
     lap("eager")
 
@@ -1384,7 +1811,9 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "G": G, "call_ms": row["call_ms"],
-            "timing": row["timing"]})
+            "timing": row["timing"], "ms_warm": row["ms_warm"],
+            "timing_warm": row["timing_warm"],
+            "cold_buffers": row["cold_buffers"]})
     # the walk kernels: the serving walk with the most chunks, per side
     # (softmax8), beside every serving walk under "walks"
     for kname, replaces in (
@@ -1449,11 +1878,15 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "G": row["G"], "call_ms": row["call_ms"],
-            "timing": row["timing"]})
-    # launches of this slice's paths: the two-party run and the eager path
+            "timing": row["timing"], "ms_warm": row["ms_warm"],
+            "timing_warm": row["timing_warm"],
+            "cold_buffers": row["cold_buffers"]})
+    # launches on the later slices' paths: the two-party run, the eager
+    # path and the gateway
     for k in kernels:
         k["launches_net"] = net["launches"].get(k["name"], 0)
         k["launches_eager"] = eager["launches"].get(k["name"], 0)
+        k["launches_gateway"] = gateway["launches"].get(k["name"], 0)
     total = time.perf_counter() - t_all
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
@@ -1464,7 +1897,8 @@ def main(argv=None) -> int:
             "halfgate": hg_rows, "label_select": ls_rows,
             "parity": parity, "gates": gates,
             "he": he, "serve": serve, "walks": walks,
-            "profile": prof, "net": net, "eager": eager,
+            "profile": prof, "net": net, "gateway": gateway,
+            "eager": eager,
             "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")

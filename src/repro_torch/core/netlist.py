@@ -4,6 +4,15 @@ accelerator simulator.
 Gate ops: 0 = XOR, 1 = AND, 2 = INV. Wires are dense ints. Constants are
 garbler-supplied input wires with recorded bits (free under garbling).
 Gates are stored in topological order (the builder emits them that way).
+
+The JAX package's ``core/netlist.py`` with its imports rewritten, except
+that the level walk (``Netlist.levels``) and the level-plan compiler's
+chunk scheduler and row allocator (``_schedule_chunks``,
+``_first_window``) are the port's own faster versions: they run the
+walks on Python lists, skip full chunks through pointers and find a
+free row window without scanning every offset, and produce every field
+of every ``LevelPlan`` exactly as the reference does
+(``tests/test_torch_sched.py`` holds them to it).
 """
 
 from __future__ import annotations
@@ -61,8 +70,11 @@ class Netlist:
             "max_level_width": max((len(l) for l in lv), default=0),
             "garbled_table_bytes": self.and_count * 32,  # 2 rows x 16B
         }
-        # the static analyzer's dataflow counters are not part of the
-        # port yet (analysis/ waits for a later slice)
+        # dataflow counters (dead/foldable/duplicate gates, removable
+        # ANDs) from the static analyzer — the measurement front-end of
+        # the AND-minimization work; cached on the netlist
+        from repro_torch.analysis.netcheck import dataflow_summary
+        st.update(dataflow_summary(self))
         return st
 
     # ---- levelization (TPU-plane schedule) --------------------------------
@@ -70,22 +82,29 @@ class Netlist:
         """Topological layers of gate indices: every gate's inputs are
         produced strictly earlier. This is the level-synchronous schedule the
         TPU plane evaluates (gather -> cipher -> scatter per level)."""
-        wire_level = np.zeros(self.num_wires, np.int32)
-        gate_level = np.zeros(self.num_gates, np.int32)
+        # the walk runs on Python lists: indexing a numpy array one
+        # element at a time costs several times more
+        op, in0 = self.op.tolist(), self.in0.tolist()
+        in1, outw = self.in1.tolist(), self.out.tolist()
+        wire_level = [0] * self.num_wires
+        gate_level = [0] * self.num_gates
         for g in range(self.num_gates):
-            a, b = self.in0[g], self.in1[g]
-            l = wire_level[a]
-            if self.op[g] != OP_INV:
-                l = max(l, wire_level[b])
-            gate_level[g] = l + 1
-            wire_level[self.out[g]] = l + 1
-        out = []
-        if self.num_gates:
-            for lvl in range(1, int(gate_level.max()) + 1):
-                idx = np.nonzero(gate_level == lvl)[0]
-                if len(idx):
-                    out.append(idx.astype(np.int32))
-        return out
+            lv = wire_level[in0[g]]
+            if op[g] != OP_INV:
+                lb = wire_level[in1[g]]
+                if lb > lv:
+                    lv = lb
+            lv += 1
+            gate_level[g] = lv
+            wire_level[outw[g]] = lv
+        if not self.num_gates:
+            return []
+        # every level from 1 to the deepest holds a gate (a gate at level
+        # L reads a wire of level L - 1), listed in gate order
+        gl = np.asarray(gate_level, np.int32)
+        order = np.argsort(gl, kind="stable").astype(np.int32)
+        cuts = np.cumsum(np.bincount(gl)[1:])[:-1]
+        return [lv for lv in np.split(order, cuts) if len(lv)]
 
     def and_gate_index(self) -> np.ndarray:
         """Per-gate index among AND gates (for garbled-table addressing)."""
@@ -242,6 +261,13 @@ class LevelPlan:
             "table_pad_ratio": round(
                 padded_tables / max(self.n_and, 1), 2),
         }
+        net = self._net
+        if net is not None:
+            # removable-AND / dead-gate counters of the *source netlist*
+            # (compile_level_plan pins it): how much of the plan's lane
+            # and table volume the dataflow analyzer can still prove away
+            from repro_torch.analysis.netcheck import dataflow_summary
+            st.update(dataflow_summary(net))
         return st
 
     def source_positions(self, wire_ids) -> np.ndarray:
@@ -308,6 +334,43 @@ def _chunk_widths(net: Netlist, depth: int,
     return ca, cf
 
 
+def _first_window(release: np.ndarray, k: int, stride: int) -> int:
+    """The lowest start of ``stride`` consecutive rows all dead by chunk
+    ``k`` (``release <= k``), or -1: the start of the first run of dead
+    rows that is at least ``stride`` long.
+
+    Every such run holds a whole aligned block of ``h = stride // 2``
+    rows, so only runs of all-dead aligned blocks are candidates: each
+    extends into the block before it (which holds a live row) up to that
+    block's last live row, and into the block after it up to that block's
+    first. One pass over the rows, then work per candidate."""
+    n = len(release)
+    if n < stride:
+        return -1
+    h = max(stride // 2, 1)
+    nb = n // h
+    blocked = release > k
+    blk = blocked[: nb * h].reshape(nb, h)
+    edges = np.diff(np.concatenate(
+        ([False], ~blk.any(axis=1), [False])).view(np.int8))
+    j0 = np.flatnonzero(edges == 1)  # first all-dead block of each run
+    j1 = np.flatnonzero(edges == -1)  # one past its last
+    if not len(j0):
+        return -1
+    start = j0 * h
+    left = j0 > 0
+    # back over the dead rows that close the block before
+    start[left] -= blk[j0[left] - 1][:, ::-1].argmax(axis=1)
+    end = j1 * h
+    inner = j1 < nb
+    end[inner] += blk[j1[inner]].argmax(axis=1)
+    if not inner[-1]:  # the last run reaches the rows past the blocks
+        tail = np.flatnonzero(blocked[nb * h:])
+        end[-1] = nb * h + tail[0] if len(tail) else n
+    fit = np.flatnonzero(end - start >= stride)
+    return int(start[fit[0]]) if len(fit) else -1
+
+
 def _allocate_rows_liveness(net: Netlist, K: int, stride: int, n_src: int,
                             chunk_of: np.ndarray, row_off: np.ndarray,
                             ) -> Tuple[np.ndarray, int]:
@@ -347,18 +410,13 @@ def _allocate_rows_liveness(net: Netlist, K: int, stride: int, n_src: int,
     base = np.empty(K, np.int64)
     for k in range(K):
         while True:
-            blocked = release[n_src:] > k
-            if len(blocked) >= stride:
-                csum = np.cumsum(blocked)
-                wsum = csum[stride - 1:].copy()
-                wsum[1:] -= csum[:-stride]
-                free_at = np.flatnonzero(wsum == 0)
-                if len(free_at):
-                    break
+            s = _first_window(release[n_src:], k, stride)
+            if s >= 0:
+                break
             release = np.concatenate(
                 [release,
                  np.zeros(max(stride, len(release) // 4), np.int64)])
-        b = int(n_src + free_at[0])
+        b = int(n_src + s)
         base[k] = b
         g_k = order[bounds[k]: bounds[k + 1]]
         release[b + row_off[g_k]] = live_until[g_k]
@@ -440,6 +498,68 @@ def _validate_plan(net: Netlist, plan: LevelPlan,
                "a netlist output row was clobbered before the end")
 
 
+def _next_open(skip: List[int], c: int) -> int:
+    """The first chunk at or after ``c`` that still has a spare lane of
+    one class (``skip[c] == c`` for an open chunk; a full chunk points
+    further on). Compresses the path it walks."""
+    root = c
+    n = len(skip)
+    while root < n and skip[root] != root:
+        root = skip[root]
+    while c < n and skip[c] != c:
+        skip[c], c = root, skip[c]
+    return root
+
+
+def _schedule_chunks(net: Netlist, ca: int, cf: int):
+    """Greedy list scheduling under per-class lane capacity: every gate
+    lands in the earliest chunk after all its inputs with a spare lane of
+    its class (AND or free), in gate order. Returns ``(chunk_of, lane_of,
+    fill_and, fill_free)``. Full chunks are skipped through a pointer per
+    class instead of one step at a time, and the walk runs on Python
+    lists; the placement is the plain scan's, gate for gate."""
+    G = net.num_gates
+    op, in0 = net.op.tolist(), net.in0.tolist()
+    in1, out = net.in1.tolist(), net.out.tolist()
+    wire_chunk = [-1] * net.num_wires
+    fill_and: List[int] = []
+    fill_free: List[int] = []
+    skip_and: List[int] = []
+    skip_free: List[int] = []
+    chunk_of = [0] * G
+    lane_of = [0] * G
+    n = 0  # chunks opened so far
+    for g in range(G):
+        o = op[g]
+        e = wire_chunk[in0[g]] + 1
+        if o != OP_INV:
+            e1 = wire_chunk[in1[g]] + 1
+            if e1 > e:
+                e = e1
+        if o == OP_AND:
+            fill, skip, cap = fill_and, skip_and, ca
+        else:
+            fill, skip, cap = fill_free, skip_free, cf
+        c = e
+        if e < n and skip[e] != e:
+            c = _next_open(skip, e)
+        while c >= n:
+            skip_and.append(n)
+            skip_free.append(n)
+            fill_and.append(0)
+            fill_free.append(0)
+            n += 1
+        lane = fill[c]
+        lane_of[g] = lane
+        fill[c] = lane + 1
+        if lane + 1 >= cap:
+            skip[c] = c + 1
+        chunk_of[g] = c
+        wire_chunk[out[g]] = c
+    return (np.asarray(chunk_of, np.int64), np.asarray(lane_of, np.int64),
+            fill_and, fill_free)
+
+
 def compile_level_plan(net: Netlist,
                        and_width: Optional[int] = None,
                        free_width: Optional[int] = None,
@@ -476,29 +596,7 @@ def compile_level_plan(net: Netlist,
         return cached
 
     op, in0, in1, out = net.op, net.in0, net.in1, net.out
-    # greedy list scheduling under per-class lane capacity: every gate
-    # lands in the earliest chunk after all its inputs with a spare lane
-    wire_chunk = np.full(W, -1, np.int64)
-    fill_and: List[int] = []
-    fill_free: List[int] = []
-    chunk_of = np.empty(G, np.int64)
-    lane_of = np.empty(G, np.int64)
-    for g in range(G):
-        e = wire_chunk[in0[g]] + 1
-        if op[g] != OP_INV:
-            e = max(e, wire_chunk[in1[g]] + 1)
-        is_and = op[g] == OP_AND
-        fill, cap = (fill_and, ca) if is_and else (fill_free, cf)
-        c = e
-        while c < len(fill) and fill[c] >= cap:
-            c += 1
-        while c >= len(fill):
-            fill_and.append(0)
-            fill_free.append(0)
-        lane_of[g] = fill[c]
-        fill[c] += 1
-        chunk_of[g] = c
-        wire_chunk[out[g]] = c
+    chunk_of, lane_of, fill_and, fill_free = _schedule_chunks(net, ca, cf)
 
     K = max(len(fill_and), 1)
     stride = ca + cf

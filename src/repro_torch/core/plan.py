@@ -97,6 +97,15 @@ class Plan:
     def gc_ops(self) -> List[OpSpec]:
         return [op for op in self.ops if op.kind in GC_KINDS]
 
+    def coarse_schedule(self, num_cores: int) -> List[List[str]]:
+        """APINT coarse-grained scheduling hook: map the plan's independent
+        GC unit operations onto accelerator cores round-robin (§3.3.1)."""
+        from repro_torch.sched.schedulers import coarse_grained_partition
+
+        names = [op.name for op in self.gc_ops()]
+        assign = coarse_grained_partition(names, num_cores)
+        return [[names[i] for i in core] for core in assign]
+
 
 def plan_to_spec(plan: Plan) -> Dict[str, object]:
     """Serialize a :class:`Plan` to plain JSON-safe data.

@@ -16,9 +16,11 @@ pluggable transport, each garbling or evaluating on its own device.
                     offline/online halves as actual message exchanges,
                     with per-tag byte ledgers equal to the metered
                     Channel of an in-process session
-
-The reference's fault injection (``net/faults.py``) and resilient client
-(``net/resilience.py``) are not ported yet.
+  ``net.faults``    FaultyTransport: seeded, deterministic fault
+                    injection (reset/stall/torn/dup) over any transport
+  ``net.resilience`` ResilientClient: reconnect with backoff + jitter,
+                    session resume via the client token, burn-on-
+                    interrupt bundle semantics
 """
 
 from repro_torch.net.transport import (
@@ -41,6 +43,17 @@ from repro_torch.net.party import (
     SessionState,
     WireLedger,
 )
+from repro_torch.net.faults import (
+    Fault,
+    FaultPlan,
+    FaultSchedule,
+    FaultyTransport,
+)
+from repro_torch.net.resilience import (
+    ResilientClient,
+    RetryPolicy,
+    SessionLost,
+)
 
 __all__ = [
     "Transport", "InProcPipe", "TcpTransport", "TcpListener", "AcceptLoop",
@@ -48,4 +61,6 @@ __all__ = [
     "WIRE_VERSION", "Msg", "Seg", "encode_msg", "decode_frame",
     "GarblerEndpoint", "EvaluatorEndpoint", "PitNetServer",
     "SessionState", "WireLedger", "NetProtocolError", "SessionRebindError",
+    "Fault", "FaultSchedule", "FaultyTransport", "FaultPlan",
+    "ResilientClient", "RetryPolicy", "SessionLost",
 ]

@@ -714,6 +714,9 @@ class EvaluatorEndpoint(_Endpoint):
         #: "error" | None while still serving. Session owners (the
         #: gateway) use it to tell a clean goodbye from a vanished peer.
         self.disconnect_reason: Optional[str] = None
+        #: the session epoch this endpoint was bound at (set at hello);
+        #: a resume bumps the session's, which retires this endpoint
+        self.epoch = session.epoch
 
     # ------------------------------------------------------------------
     def serve_forever(self) -> None:
@@ -856,6 +859,7 @@ class EvaluatorEndpoint(_Endpoint):
         self.compression = comp
         with self.session.lock:  # readers (stats pollers) snapshot it
             self.session.wire_version = ver
+            self.epoch = self.session.epoch
             if payload.get("reset_ot"):
                 # reconnect hello: the IKNP extension counters on a
                 # half-dead transport pair are desynced (receiver and
@@ -1146,7 +1150,9 @@ class EvaluatorEndpoint(_Endpoint):
             # column matrix u out, masked label pairs back.
             sess = self.session
             g_lab_data = None
-            iknp = sess.iknp
+            with sess.lock:
+                self._check_epoch()
+                iknp = sess.iknp
             if iknp is None:
                 with sh.rng_lock:
                     iknp = OT.IknpReceiver(sh.rng)
@@ -1154,7 +1160,9 @@ class EvaluatorEndpoint(_Endpoint):
                                        iknp.base_msg_a())], W.PHASE_ONLINE)
                 g_lab_data = self._expect_seg("g-labels")
                 iknp.absorb_base_b(self._expect_seg("ot-base"))
-                sess.iknp = iknp
+                with sess.lock:
+                    self._check_epoch()
+                    sess.iknp = iknp
             u, t_cols = iknp.extend(e_bits)
             self._send_segs([W.Seg(f"ot:{net.name}", W.DIR_C2S, u)],
                             W.PHASE_ONLINE)
@@ -1185,6 +1193,19 @@ class EvaluatorEndpoint(_Endpoint):
         out_bits = ((_d2h(out_lab[..., 0].contiguous()) & 1) ^ part["perm"]
                     ).astype(np.uint8)
         return words_from_bits(out_bits, k, t)
+
+    def _check_epoch(self) -> None:
+        """Refuse the session's IKNP state to a retired endpoint (caller
+        holds the session lock). After a resume, the dead pair's endpoint
+        may still be working through frames queued before its transport
+        died; the JAX package lets it extend the receiver the resumed
+        pair just built, which advances that receiver's counters past the
+        client's sender and garbles the retried run's labels. Its run is
+        burned anyway, so it stops here as a closed transport."""
+        if self.epoch != self.session.epoch:
+            raise TransportClosed(
+                f"endpoint of session epoch {self.epoch} retired by a "
+                f"resume (epoch {self.session.epoch})")
 
     def _server_layernorm(self, op: OpSpec, part: dict, hs: np.ndarray
                           ) -> np.ndarray:

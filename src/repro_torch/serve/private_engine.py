@@ -21,8 +21,7 @@ object, and correctness beats concurrency there.
 
 The port of the JAX package's ``PrivateServeEngine`` (every bucket
 garbles and evaluates on the engine's ``device``) and of its pipelined
-two-party client, :class:`NetPrivateServeEngine`. The coarse schedule
-hook waits for a later slice.
+two-party client, :class:`NetPrivateServeEngine`.
 """
 
 from __future__ import annotations
@@ -48,7 +47,7 @@ class PrivateRequest:
 class PrivateServeEngine:
     def __init__(self, model, *, buckets: Sequence[int] = (),
                  pool_target: int = 2, auto_refill: bool = False,
-                 device=None):
+                 num_cores: int = 16, device=None):
         """``model``: a ``PrivateTransformer`` (server-owned weights).
 
         ``buckets`` pre-compiles sessions for those sequence lengths;
@@ -60,6 +59,7 @@ class PrivateServeEngine:
         self.model = model
         self.pool_target = pool_target
         self.auto_refill = auto_refill
+        self.num_cores = num_cores
         self.device = device if device is not None else \
             getattr(model, "device", "cuda")
         self._sessions: Dict[int, PiTSession] = {}
@@ -220,6 +220,10 @@ class PrivateServeEngine:
     # ------------------------------------------------------------------
     def stats(self, seq_len: int):
         return self.session(seq_len).stats
+
+    def schedule_info(self, seq_len: int) -> List[List[str]]:
+        """Coarse-grained GC-op → accelerator-core assignment (§3.3.1)."""
+        return self.session(seq_len).plan.coarse_schedule(self.num_cores)
 
 
 # ---------------------------------------------------------------------------

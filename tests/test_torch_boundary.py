@@ -43,8 +43,14 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert "repro_torch.core.session" in names
-    assert "repro_torch.net.party" in names
+    for m in ("repro_torch.core.session", "repro_torch.net.party",
+              "repro_torch.net.faults", "repro_torch.net.resilience",
+              "repro_torch.serve.gateway", "repro_torch.sched.schedulers",
+              "repro_torch.sched.speculation", "repro_torch.accel.sim",
+              "repro_torch.accel.energy", "repro_torch.analysis.cli",
+              "repro_torch.analysis.secretflow",
+              "repro_torch.analysis.jit_hygiene"):
+        assert m in names, m
 
 
 @pytest.mark.parametrize("path", SCRIPTS[2:], ids=[p.stem for p in SCRIPTS[2:]])
