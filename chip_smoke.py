@@ -78,7 +78,18 @@ Phases, each asserting (any failure exits non-zero and prints no result):
 12. eager   — ``forward_private`` on the card at the serving phase's
               model (BERT-base width, same weights, seed and first input),
               equal to that phase's first output bit for bit; the walk
-              kernels, label select and the NTT must have launched.
+              kernels, label select and the NTT must have launched;
+13. model   — the model plane's serving half (torch ops, mostly cuBLAS
+              products; no kernel of this repository): ``llama3.2-1b`` at
+              full width and depth in bf16 served by ``ServeEngine``
+              (two batches of 4 requests, 128-token prompts, 32 new tokens;
+              prefill ms, decode ms per step, tokens/s, peak memory, the
+              device's busy share of a short generate); the same width at 2
+              layers in f32, card == CPU and decode == prefill over the
+              grown prompt; ``bert-base-pit`` at full width and depth, and
+              at 2 layers card == CPU; every other registered architecture
+              reduced, prefill and one decode step card == CPU (see
+              ``phase_model``).
 
 Phase 3 also runs the NTT at N = 16384 and 32768 (bit-exact at their HE
 primes, a 31-bit prime and ragged rows; profiler times, warm and cold, at
@@ -1720,6 +1731,250 @@ def phase_eager(args, serve_ys):
                            layers=args.layers, seq=S)}
 
 
+#: card against CPU at f32 with TF32 off: the same torch ops, sums in
+#: another order (cuBLAS against the CPU's BLAS)
+MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
+#: the architectures of part (d), each at ``reduced_config(...)``
+MODEL_OTHERS = ("smollm-360m", "qwen3-1.7b", "deepseek-67b", "olmoe-1b-7b",
+                "llama4-scout-17b-a16e", "musicgen-medium", "internvl2-26b",
+                "zamba2-2.7b", "xlstm-125m")
+
+
+def _model_batch(cfg, b, s, rng, decode=False):
+    """A prefill batch (or a one-step decode batch) for any input mode."""
+    import numpy as np
+
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": rng.standard_normal(
+            (b, 1 if decode else s, cfg.d_model)).astype(np.float32)}
+    n_img = 0 if decode or cfg.input_mode == "tokens" \
+        else cfg.num_image_tokens
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (b, 1 if decode else s - n_img))}
+    if n_img:
+        out["image_embeds"] = rng.standard_normal(
+            (b, n_img, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _on(batch, dev):
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _card_vs_cpu(cfg, seed, b, s, tag):
+    """The same seeded params on the card and the CPU: prefill logits, and
+    one decode step from caches grown by 3, must agree within
+    ``MODEL_TOL``. Returns the largest differences."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as MT
+    from repro_torch.serve.engine import ServeEngine
+
+    params = MT.init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    p_cpu = MT.tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(seed)
+    batch, step = _model_batch(cfg, b, s, rng), \
+        _model_batch(cfg, b, s, rng, decode=True)
+    out = {}
+    for dev, p in ((DEVICE, params), ("cpu", p_cpu)):
+        eng = ServeEngine(cfg, p, capacity=s + 3, batch=b, device=dev)
+        logits, caches = eng._prefill(p, _on(batch, dev))
+        dlogits, _ = eng._decode(p, _on(step, dev),
+                                 eng._grow_caches(caches, s + 3))
+        out[dev] = [logits.cpu(), dlogits.cpu()]
+    err = []
+    for got, want, what in zip(out[DEVICE], out["cpu"],
+                               ("prefill", "decode")):
+        assert torch.isfinite(got).all(), f"{tag}: {what} logits not finite"
+        torch.testing.assert_close(got, want, **MODEL_TOL,
+                                   msg=lambda m: f"{tag} {what}: {m}")
+        err.append(float((got - want).abs().max()))
+    return {"prefill_max_abs_err": err[0], "decode_max_abs_err": err[1]}
+
+
+def phase_model(args):
+    """The model plane's serving half on the card: torch ops (mostly cuBLAS
+    products), no kernel of this repository.
+
+    (a) ``llama3.2-1b`` at full width and depth (bf16 compute, f32 master
+    params from a seeded generator on the card): ``ServeEngine(capacity=
+    256, batch=4)`` answers two batches of 4 requests (128-token prompts
+    from ``SyntheticLMData``, 32 new tokens each); tokens in range, logits
+    finite; prefill ms per batch, decode ms per step, tokens/s, peak
+    memory, then a short generate under the profiler for the device's busy
+    share. (b) The same width at 2 layers in f32: prefill logits on the
+    card == on the CPU within ``MODEL_TOL``, and the card's greedy tokens
+    == the argmax of a full prefill over the grown prompt at each step.
+    (c) ``bert-base-pit`` at full width and depth in bf16: prefill at
+    batch 4, S=128, finite; 2 layers in f32 card == CPU. (d) Every other
+    registered architecture at ``reduced_config`` in f32: prefill and one
+    decode step, card == CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import transformer as MT
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+
+    # (a) full-width serving
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = MT.init_params(cfg, torch.Generator(DEVICE).manual_seed(
+        args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in _leaves(params))
+    eng = ServeEngine(cfg, params, capacity=256, batch=4, device=DEVICE)
+    clock = {"prefill": [], "decode": []}
+
+    def timed(fn, name):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = fn(*a)
+            torch.cuda.synchronize()
+            clock[name].append(time.perf_counter() - t)
+            assert torch.isfinite(logits).all(), f"{name} logits not finite"
+            return logits, caches
+        return run
+
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._decode = timed(eng._decode, "decode")
+    prompts = SyntheticLMData(cfg, global_batch=8, seq_len=128,
+                              seed=args.seed).batch_at(0)["tokens"]
+    batches = []
+    for i in range(2):
+        for v in clock.values():
+            v.clear()
+        t0 = time.perf_counter()
+        done = eng.generate([Request(prompt=p, max_new_tokens=32)
+                             for p in prompts[4 * i:4 * i + 4]])
+        wall = time.perf_counter() - t0
+        toks = np.array([r.out_tokens for r in done])
+        assert toks.shape == (4, 32), toks.shape
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        dec = np.array(clock["decode"]) * 1e3
+        batches.append({
+            "prefill_ms": clock["prefill"][0] * 1e3,
+            "decode_ms_per_step": float(dec.mean()),
+            "decode_ms_min": float(dec.min()), "decode_ms_max": float(dec.max()),
+            "decode_steps": len(dec), "generate_s": wall,
+            "tokens_per_s": toks.size / wall})
+        print(f"[model] llama3.2-1b full width, batch {i + 1} of 4 requests "
+              f"(128-token prompts, 32 new tokens): prefill "
+              f"{batches[-1]['prefill_ms']:.2f} ms, decode "
+              f"{dec.mean():.3f} ms/step (min {dec.min():.3f}, max "
+              f"{dec.max():.3f}, {len(dec)} steps), {toks.size} tokens in "
+              f"{wall:.3f} s = {toks.size / wall:.1f} tokens/s", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    # one byte-floor yardstick for a decode step: every weight the step
+    # multiplies by (all but the embedding table) read once in bf16
+    floor_bytes = 2 * (n_params - params["embed"]["table"].numel())
+    prof = _profiled(lambda: eng.generate(
+        [Request(prompt=p, max_new_tokens=8) for p in prompts[:4]]), "model")
+    busy = None
+    if prof is not None:
+        wall, by_kernel = prof
+        busy_s = sum(t for t, _ in by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        busy = {"wall_s": wall, "device_busy_s": busy_s,
+                "busy_share": busy_s / wall,
+                "top": {k: {"s": t, "count": c} for k, (t, c) in top}}
+        print(f"[model] a generate of 4 x 8 tokens under the profiler: wall "
+              f"{wall:.3f} s, device busy {busy_s:.3f} s "
+              f"({100 * busy_s / wall:.1f}%); top device time (s, count): "
+              + "; ".join(f"{k[:40]} {t:.4f} x{c}" for k, (t, c) in top))
+    print(f"[model] params {n_params / 1e9:.3f} B in f32, init "
+          f"{init_s:.2f} s; peak device memory {peak / 2**30:.2f} GiB; "
+          f"decode byte floor (bf16 weights once) "
+          f"{floor_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    res["serve"] = {"config": "llama3.2-1b", "params": n_params,
+                    "init_s": init_s, "batches": batches,
+                    "peak_bytes": peak, "profile": busy,
+                    "decode_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3}
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # (b) full width, 2 layers, f32: card == CPU, decode == prefill
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    res["llama_2l_f32"] = _card_vs_cpu(cfg2, args.seed, 2, 32, "llama 2L")
+    params = MT.init_params(cfg2, torch.Generator(DEVICE).manual_seed(
+        args.seed))
+    eng = ServeEngine(cfg2, params, capacity=64, batch=2, device=DEVICE)
+    rng = np.random.default_rng(args.seed)
+    prompts2 = rng.integers(0, cfg2.vocab_size, (2, 32))
+    done = eng.generate([Request(prompt=p, max_new_tokens=8)
+                         for p in prompts2])
+    for p, r in zip(prompts2, done):
+        toks = list(p)
+        for t in r.out_tokens:
+            logits, _ = eng._prefill(params, {"tokens": torch.tensor(
+                [toks], device=DEVICE)})
+            assert int(logits[0, :cfg2.vocab_size].argmax()) == t, \
+                "card decode != card prefill over the grown prompt"
+            toks.append(t)
+    res["llama_2l_f32"]["decode_equals_prefill_tokens"] = 16
+    print(f"[model] llama3.2-1b 2 layers f32: card == CPU (prefill "
+          f"{res['llama_2l_f32']['prefill_max_abs_err']:.2e}, decode "
+          f"{res['llama_2l_f32']['decode_max_abs_err']:.2e} max abs); 2 x 8 "
+          f"greedy tokens == argmax of a full prefill at each step")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # (c) the paper's model
+    bert = get_config("bert-base-pit")
+    params = MT.init_params(bert, torch.Generator(DEVICE).manual_seed(
+        args.seed))
+    toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, bert.vocab_size, (4, 128))).to(DEVICE)
+    ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = MT.forward(bert, params, {"tokens": toks},
+                                   mode="prefill")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    assert logits.shape == (4, bert.padded_vocab)
+    assert torch.isfinite(logits).all()
+    del params
+    res["bert"] = {"prefill_ms": ms, **_card_vs_cpu(
+        dataclasses.replace(bert, num_layers=2, dtype="float32"), args.seed,
+        4, 128, "bert 2L")}
+    print(f"[model] bert-base-pit 12 layers bf16, batch 4 x 128: prefill "
+          f"{ms[0]:.2f} ms first, {min(ms[1:]):.2f} ms warm; 2 layers f32 "
+          f"card == CPU ({res['bert']['prefill_max_abs_err']:.2e} max abs)")
+
+    # (d) every other registered architecture, reduced, card == CPU
+    res["reduced"] = {}
+    for name in MODEL_OTHERS:
+        res["reduced"][name] = _card_vs_cpu(
+            reduced_config(get_config(name)), args.seed, 2, 17, name)
+    worst = max(max(v.values()) for v in res["reduced"].values())
+    print(f"[model] {len(MODEL_OTHERS)} other architectures (reduced, f32): "
+          f"prefill and one decode step card == CPU (worst {worst:.2e} max "
+          f"abs; tolerance rtol=atol=2e-3)")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=1,
@@ -1791,6 +2046,8 @@ def main(argv=None) -> int:
     lap("gateway")
     eager = phase_eager(args, serve_ys)
     lap("eager")
+    model = phase_model(args)
+    lap("model")
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
            for p in _sources()}
@@ -1898,7 +2155,7 @@ def main(argv=None) -> int:
             "parity": parity, "gates": gates,
             "he": he, "serve": serve, "walks": walks,
             "profile": prof, "net": net, "gateway": gateway,
-            "eager": eager,
+            "eager": eager, "model": model,
             "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")

@@ -1,3 +1,4 @@
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.errors import BundlePoolEmpty
 from repro_torch.serve.private_engine import (
     NetPrivateServeEngine,
@@ -6,6 +7,7 @@ from repro_torch.serve.private_engine import (
 )
 
 __all__ = [
+    "ServeEngine",
     "PrivateServeEngine",
     "NetPrivateServeEngine",
     "PrivateRequest",

@@ -49,8 +49,19 @@ def test_import_leaves_jax_and_repro_unloaded():
               "repro_torch.sched.speculation", "repro_torch.accel.sim",
               "repro_torch.accel.energy", "repro_torch.analysis.cli",
               "repro_torch.analysis.secretflow",
-              "repro_torch.analysis.jit_hygiene"):
+              "repro_torch.analysis.jit_hygiene",
+              # the model plane's serving half
+              "repro_torch.config", "repro_torch.config.base",
+              "repro_torch.config.registry", "repro_torch.configs",
+              "repro_torch.models.layers", "repro_torch.models.moe",
+              "repro_torch.models.ssm", "repro_torch.models.sharding",
+              "repro_torch.models.transformer", "repro_torch.serve.engine",
+              "repro_torch.data.pipeline", "repro_torch.utils.log"):
         assert m in names, m
+    configs = sorted(p.stem for p in (PKG / "configs").glob("*.py")
+                     if p.stem != "__init__")
+    assert len(configs) == 11
+    assert all(f"repro_torch.configs.{c}" in names for c in configs)
 
 
 @pytest.mark.parametrize("path", SCRIPTS[2:], ids=[p.stem for p in SCRIPTS[2:]])

@@ -326,3 +326,82 @@ def test_protocol_keygen_at_16384_on_card_matches_cpu(cuda):
         assert (NTT.ntt_forward.launches > 0) == (dev == cuda)
         keys.append((p.sk.cpu(), *(x.cpu() for x in p.pk)))
     assert all(torch.equal(x, y) for x, y in zip(*keys))
+
+
+# ---------------------------------------------------------------------------
+# the model plane: the card against the CPU (no kernel of this repository
+# runs here: these are torch ops, mostly cuBLAS products)
+# ---------------------------------------------------------------------------
+
+#: f32 on both devices with TF32 off; sums in another order (cuBLAS
+#: against the CPU's BLAS): 2e-3 relative and absolute
+MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.fixture
+def no_tf32():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = prev
+
+
+def _model_on_both(arch, **over):
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.models import transformer as MT
+
+    cfg = reduced_config(get_config(arch), **over)
+    params = MT.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, MT, params, MT.tree_map(lambda a: a.to("cuda"), params)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b",
+                                  "zamba2-2.7b", "xlstm-125m"])
+def test_model_prefill_and_decode_on_card_match_cpu(cuda, no_tf32, arch):
+    cfg, MT, p_cpu, p_gpu = _model_on_both(arch, num_layers=2)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        logits, caches = MT.forward(cfg, params, {"tokens": toks.to(dev)},
+                                    mode="prefill")
+        if cfg.uses_attention:
+            caches["layers"]["attn"] = {
+                k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 3))
+                for k, v in caches["layers"]["attn"].items()}
+        dlogits, _ = MT.forward(cfg, params, {"tokens": nxt.to(dev)},
+                                mode="decode", caches=caches)
+        out[dev] = (logits.cpu(), dlogits.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **MODEL_TOL)
+
+
+def test_serve_engine_on_card_decode_matches_prefill(cuda, no_tf32):
+    """The card's greedy tokens equal the argmax of a full prefill over the
+    grown prompt at each step, and the CPU engine's tokens."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, MT, p_cpu, p_gpu = _model_on_both("llama3.2-1b", num_layers=2,
+                                           attn_chunk=16)
+    prompts = [np.random.default_rng(s).integers(0, cfg.vocab_size, 9)
+               for s in (2, 3)]
+    got = ServeEngine(cfg, p_gpu, capacity=32, batch=2).generate(
+        [Request(prompt=p, max_new_tokens=5) for p in prompts])
+    on_cpu = ServeEngine(cfg, p_cpu, capacity=32, batch=2,
+                         device="cpu").generate(
+        [Request(prompt=p, max_new_tokens=5) for p in prompts])
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in on_cpu]
+    for p, r in zip(prompts, got):
+        toks = list(p)
+        for t in r.out_tokens:
+            logits, _ = MT.forward(cfg, p_gpu,
+                                   {"tokens": torch.tensor([toks],
+                                                           device="cuda")},
+                                   mode="prefill")
+            assert int(logits[0, :cfg.vocab_size].argmax()) == t
+            toks.append(t)
