@@ -89,7 +89,18 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               grown prompt; ``bert-base-pit`` at full width and depth, and
               at 2 layers card == CPU; every other registered architecture
               reduced, prefill and one decode step card == CPU (see
-              ``phase_model``).
+              ``phase_model``);
+14. train   — training on one card (torch ops and autograd; no kernel of
+              this repository): ``llama3.2-1b`` at full width and depth
+              trained by ``Trainer`` (bf16 compute, f32 master params and
+              Adam moments, block remat), 8 sequences of 4,096 tokens as 8
+              microbatches, 3 steps (seconds, loss, grad norm, tokens/s,
+              peak memory, the model-FLOP share, the device's busy share of
+              one profiled step); the same width at 2 layers in f32, one
+              step card == CPU; resume bit for bit on the card in a child
+              process with deterministic algorithms; every other
+              architecture reduced, one step card == CPU and block remat on
+              == off (see ``phase_train``).
 
 Phase 3 also runs the NTT at N = 16384 and 32768 (bit-exact at their HE
 primes, a 31-bit prime and ragged rows; profiler times, warm and cold, at
@@ -1975,6 +1986,289 @@ def phase_model(args):
     return res
 
 
+#: train phase (c): the resumed run's setup, as ``tests/test_train.py``'s
+RESUME_ARCH, RESUME_BATCH, RESUME_SEQ = "smollm-360m", 4, 32
+
+
+def _train_state(cfg, seed, dev, step=5):
+    """Seeded f32 params drawn on the card, zero Adam moments and ``step``
+    (past warm-up, so the learning rate is not 0), on ``dev``."""
+    import torch
+    from repro_torch.models import transformer as MT
+    from repro_torch.train.optimizer import init_opt_state
+
+    params = MT.init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    params = MT.tree_map(lambda a: a.to(dev), params)
+    return {"params": params, "opt": init_opt_state(params),
+            "step": torch.tensor(step, dtype=torch.int32, device=dev)}
+
+
+def _train_batch(cfg, b, s, rng):
+    batch = _model_batch(cfg, b, s, rng)
+    batch["labels"] = rng.integers(0, cfg.vocab_size, (b, s))
+    return batch
+
+
+def _step_on(cfg, tc, state, batch, dev):
+    from repro_torch.launch.steps import build_train_step
+
+    step, _, _, _ = build_train_step(cfg, tc)
+    return step(state, _on(batch, dev))
+
+
+def _train_card_vs_cpu(cfg, tc, seed, b, s, tag):
+    """One train step from the same seeded state on the card and the CPU:
+    loss, grad_norm and every updated leaf of params and moments within
+    ``MODEL_TOL``. Returns the largest differences and the card's state."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as MT
+
+    batch = _train_batch(cfg, b, s, np.random.default_rng(seed))
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        state = _train_state(cfg, seed, dev)
+        out[dev] = _step_on(cfg, tc, state, batch, dev)
+    (g_state, g_met), (c_state, c_met) = out[DEVICE], out["cpu"]
+    err = {}
+    for k in ("loss", "grad_norm", "aux"):
+        got, want = g_met[k].cpu(), c_met[k]
+        assert torch.isfinite(got), f"{tag}: {k} not finite"
+        torch.testing.assert_close(got, want, **MODEL_TOL,
+                                   msg=lambda m: f"{tag} {k}: {m}")
+        err[k] = float((got - want).abs())
+    for part in ("params", "m", "v"):
+        g_tree = g_state["params"] if part == "params" \
+            else g_state["opt"][part]
+        c_tree = c_state["params"] if part == "params" \
+            else c_state["opt"][part]
+        worst = 0.0
+        for got, want in zip(_leaves(g_tree), _leaves(c_tree)):
+            got = got.cpu()
+            torch.testing.assert_close(got, want, **MODEL_TOL,
+                                       msg=lambda m: f"{tag} {part}: {m}")
+            worst = max(worst, float((got - want).abs().max()))
+        err[part] = worst
+    del c_state
+    return err, g_state, g_met
+
+
+def _resume_child():
+    """Train phase (c), in a process of its own: ``CUBLAS_WORKSPACE_CONFIG``
+    is set before CUDA starts and deterministic algorithms are on (the
+    gather backwards of the embedding and of the loss scatter-add on
+    CUDA). 8 steps straight against 4, a checkpoint, a new trainer that
+    resumes it and 4 more: losses and final state must be bit-identical.
+    Prints one JSON line."""
+    import tempfile
+
+    import torch
+    from repro_torch.config import TrainConfig, get_config, reduced_config
+    from repro_torch.train.trainer import Trainer
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(get_config(RESUME_ARCH))
+
+    def trainer(d):
+        tc = TrainConfig(total_steps=10, warmup_steps=2, checkpoint_every=4,
+                         checkpoint_dir=d, seed=0)
+        return Trainer(cfg, tc, global_batch=RESUME_BATCH,
+                       seq_len=RESUME_SEQ, device=DEVICE)
+
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        tr = trainer(d1)
+        tr.init_or_resume(resume=False)
+        full = tr.run(8, with_guard=False)["losses"]
+        straight = _leaves(tr.state)
+        tr1 = trainer(d2)
+        tr1.init_or_resume(resume=False)
+        part1 = tr1.run(4, with_guard=False)["losses"]
+        tr2 = trainer(d2)
+        resumed_at = tr2.init_or_resume(resume=True)
+        part2 = tr2.run(4, with_guard=False)["losses"]
+        resumed = _leaves(tr2.state)
+    same = [bool(torch.equal(a, b)) for a, b in zip(straight, resumed)]
+    print(json.dumps({
+        "resumed_at": resumed_at, "losses": full,
+        "losses_resumed": part1 + part2,
+        "losses_equal": full == part1 + part2,
+        "leaves": len(same), "leaves_equal": sum(same),
+        "max_abs_diff": max(float((a - b).abs().max())
+                            for a, b in zip(straight, resumed))}))
+
+
+def phase_train(args):
+    """Training on one card: torch ops (mostly cuBLAS products) and
+    autograd, no kernel of this repository.
+
+    (a) ``llama3.2-1b`` at full width and depth (bf16 compute, f32 master
+    params and Adam moments, block remat) trained by ``Trainer`` on the
+    card: global batch 8 × 4,096 tokens (``train_4k``'s length) as 8
+    microbatches, 3 steps; each step's seconds, loss and grad norm
+    (finite; the first loss within 1.0 of ln(vocab) + z-loss), tokens/s
+    and the model-FLOP share of the card's bf16 peak from the second
+    step, peak memory, and the device's busy share of the third, run
+    under the profiler. (b) The
+    same width at 2 layers in f32 (TF32 off), batch 2 × 128: one
+    ``build_train_step`` step from the same state on the card and the
+    CPU, within ``MODEL_TOL``. (c) Resume bit for bit on the card
+    (``_resume_child``). (d) Every other registered architecture, reduced:
+    one step card == CPU, and block remat on == off on the card."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.config import (ShapeConfig, TrainConfig, get_config,
+                                    reduced_config)
+    from repro_torch.roofline import HW, model_flops
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    res = {}
+
+    # (a) full width and depth
+    cfg = get_config("llama3.2-1b")
+    B, S, mb = 8, 4096, 8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        tc = TrainConfig(microbatches=mb, checkpoint_every=10**9,
+                         checkpoint_dir=ckpt, seed=args.seed)
+        tr = Trainer(cfg, tc, global_batch=B, seq_len=S, device=DEVICE)
+        t0 = time.perf_counter()
+        tr.init_or_resume(resume=False)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        steps, ran = [], []
+        for i in range(3):  # the third under the profiler
+            t0 = time.perf_counter()
+            if i < 2:
+                ran.append(tr.run(1, with_guard=False))
+            else:
+                prof = _profiled(
+                    lambda: ran.append(tr.run(1, with_guard=False)), "train")
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0,
+                          "profiled": i == 2, **ran[-1]["metrics"][0]})
+        peak = torch.cuda.max_memory_allocated()
+    n_params = sum(a.numel() for a in _leaves(tr.state["params"]))
+    del tr
+    torch.cuda.empty_cache()
+    for st in steps:
+        assert math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]), st
+    logz = math.log(cfg.vocab_size)
+    want = logz + tc.z_loss * logz ** 2
+    assert abs(steps[0]["loss"] - want) < 1.0, (steps[0]["loss"], want)
+    warm = steps[1]["s"]
+    flops = model_flops(cfg, ShapeConfig("train", S, B, "train"))
+    mfu = flops / warm / HW().peak_flops
+    busy = None
+    if prof is not None:
+        wall, by_kernel = prof
+        busy_s = sum(t for t, _ in by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+        busy = {"wall_s": wall, "device_busy_s": busy_s,
+                "busy_share": busy_s / wall,
+                "top": {k: {"s": t, "count": c} for k, (t, c) in top}}
+    res["full"] = {"config": "llama3.2-1b", "params": n_params,
+                   "global_batch": B, "seq_len": S, "microbatches": mb,
+                   "init_s": init_s, "steps": steps, "warm_step_s": warm,
+                   "tokens_per_s": B * S / warm, "peak_bytes": peak,
+                   "model_flops": flops, "model_flop_share": mfu,
+                   "first_loss_expected": want, "profile": busy,
+                   "part_s": time.perf_counter() - t_phase}
+    print("[train] llama3.2-1b full width and depth, bf16 compute, f32 "
+          f"master + Adam, block remat, {B} x {S} tokens as {mb} "
+          f"microbatches: steps (the third profiled) " + "; ".join(
+              f"{st['s']:.3f} s loss {st['loss']:.4f} grad_norm "
+              f"{st['grad_norm']:.4f}" for st in steps)
+          + f"; warm {warm:.3f} s = {B * S / warm:.1f} tokens/s; "
+          f"model-FLOP share {100 * mfu:.2f}% of {HW().peak_flops / 1e12:.0f}"
+          f" TFLOP/s; peak device memory {peak / 2**30:.2f} GiB; params "
+          f"{n_params / 1e9:.3f} B, init {init_s:.2f} s", flush=True)
+    if busy is not None:
+        print(f"[train] one step under the profiler: wall {busy['wall_s']:.3f}"
+              f" s, device busy {busy['device_busy_s']:.3f} s "
+              f"({100 * busy['busy_share']:.1f}%); top device time (s, "
+              "count): " + "; ".join(
+                  f"{k[:40]} {v['s']:.3f} x{v['count']}"
+                  for k, v in busy["top"].items()), flush=True)
+
+    # (b) the same width at 2 layers, f32: card == CPU
+    t_part = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    tc2 = TrainConfig(warmup_steps=3, seed=args.seed)
+    err, _, met = _train_card_vs_cpu(cfg2, tc2, args.seed, 2, 128,
+                                     "llama 2L train")
+    res["llama_2l_f32"] = {**err, "loss": float(met["loss"]),
+                           "part_s": time.perf_counter() - t_part}
+    print(f"[train] llama3.2-1b 2 layers f32, 2 x 128: one step card == CPU "
+          f"(loss {float(met['loss']):.5f}, max abs: loss {err['loss']:.2e}, "
+          f"grad_norm {err['grad_norm']:.2e}, params {err['params']:.2e}, m "
+          f"{err['m']:.2e}, v {err['v']:.2e})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) resume bit for bit, in a process of its own
+    t_part = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--train-resume-child"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    resume = json.loads(out.stdout.strip().splitlines()[-1])
+    assert resume["resumed_at"] == 4, resume
+    assert resume["losses_equal"], resume
+    assert resume["leaves_equal"] == resume["leaves"], resume
+    res["resume"] = {**resume, "part_s": time.perf_counter() - t_part}
+    print(f"[train] resume on the card ({RESUME_ARCH} reduced, "
+          f"{RESUME_BATCH} x {RESUME_SEQ}, deterministic algorithms): 8 "
+          f"losses and all {resume['leaves']} state leaves of a run resumed "
+          "at step 4 == the uninterrupted run, bit for bit", flush=True)
+
+    # (d) every other architecture, reduced
+    t_part = time.perf_counter()
+    res["reduced"] = {}
+    for name in MODEL_OTHERS + ("bert-base-pit",):
+        small = reduced_config(get_config(name))
+        err, on_state, _ = _train_card_vs_cpu(small, tc2, args.seed, 2, 64,
+                                              name)
+        off = dataclasses.replace(small, remat="none")
+        batch = _train_batch(small, 2, 64, np.random.default_rng(args.seed))
+        off_state, _ = _step_on(off, tc2, _train_state(off, args.seed,
+                                                       DEVICE), batch, DEVICE)
+        diffs = [float((a - b).abs().max()) for a, b in
+                 zip(_leaves(on_state), _leaves(off_state))]
+        for a, b in zip(_leaves(on_state), _leaves(off_state)):
+            torch.testing.assert_close(
+                a, b, **MODEL_TOL, msg=lambda m: f"{name} remat: {m}")
+        err["remat_max_abs_diff"] = max(diffs)
+        err["remat_bitwise"] = max(diffs) == 0.0
+        res["reduced"][name] = err
+    n_bit = sum(v["remat_bitwise"] for v in res["reduced"].values())
+    worst = max(max(v[k] for k in ("loss", "grad_norm", "params", "m", "v"))
+                for v in res["reduced"].values())
+    print(f"[train] {len(res['reduced'])} other architectures (reduced, f32):"
+          f" one step card == CPU (worst {worst:.2e} max abs; tolerance "
+          f"rtol=atol=2e-3); block remat on == off on the card, bit for bit "
+          f"in {n_bit} of {len(res['reduced'])} (worst "
+          f"{max(v['remat_max_abs_diff'] for v in res['reduced'].values()):.2e})",
+          flush=True)
+    res["reduced_part_s"] = time.perf_counter() - t_part
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase {res['seconds']:.1f} s: (a) "
+          f"{res['full']['part_s']:.1f}, (b) "
+          f"{res['llama_2l_f32']['part_s']:.1f}, (c) "
+          f"{res['resume']['part_s']:.1f}, (d) {res['reduced_part_s']:.1f}",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=1,
@@ -1992,6 +2286,8 @@ def main(argv=None) -> int:
                     help="run the device, build and NTT kernel phases only "
                          "(to compare two versions of the NTT in one call);"
                          " prints no kernels or ok line")
+    ap.add_argument("--train-resume-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2005,6 +2301,9 @@ def main(argv=None) -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.train_resume_child:
+        _resume_child()
+        return 0
     t_all = time.perf_counter()
     name, smi = phase_device()
     built = phase_build()
@@ -2048,6 +2347,8 @@ def main(argv=None) -> int:
     lap("eager")
     model = phase_model(args)
     lap("model")
+    train = phase_train(args)
+    lap("train")
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
            for p in _sources()}
@@ -2155,7 +2456,7 @@ def main(argv=None) -> int:
             "parity": parity, "gates": gates,
             "he": he, "serve": serve, "walks": walks,
             "profile": prof, "net": net, "gateway": gateway,
-            "eager": eager, "model": model,
+            "eager": eager, "model": model, "train": train,
             "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")

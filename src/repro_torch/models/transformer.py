@@ -20,8 +20,13 @@ reference's ``lax.scan``) and returns:
 
 Caches are the reference's tree with ``"len"`` a host int. Forward passes
 are functional: a decode returns new caches and leaves the given ones as
-they were. No activation checkpointing yet (``cfg.remat`` is read by the
-training slice).
+they were. In train mode with ``cfg.remat == "block"`` (every config's
+default) each step of the stack (a block; a super-block for ssm and
+hybrid, as the reference's scan body) runs under
+``torch.utils.checkpoint``: the backward pass recomputes the block from
+its input, so only the (B, S, d) stream between blocks is kept — the
+reference's ``jax.checkpoint(..., nothing_saveable)``. The recomputation
+replays the same ops on the same inputs, so the numbers are unchanged.
 
 ``params_from_reference`` / ``caches_from_reference`` carry a tree of the
 JAX package (leaves as numpy arrays, or anything ``np.asarray`` takes)
@@ -34,23 +39,27 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.sharding import shard
+from repro_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # trees
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of nested dicts."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` blocks of a stacked tree, as views (``torch.unbind``):
+    one backward node per leaf, which stacks the blocks' gradients once."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _at(tree, *idx):
@@ -291,15 +300,26 @@ def forward(
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layer_caches = None
 
+    def run(step, *args):
+        """One step of the stack; under block remat its activations are
+        recomputed in the backward pass instead of kept."""
+        if mode == "train" and cfg.remat == "block":
+            return checkpoint(step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return step(*args)
+
     if cfg.family in ("dense", "moe", "audio", "vlm"):
-        stacked = params["stacked"]["block"]
+        blocks = _unstack(params["stacked"]["block"], ns)
         ys = []
         for i in range(ns):
             c_in = _attn_layer_cache(
                 _at(layer_caches["attn"], i) if decode else None, cache_len)
-            x, new_c, a = _apply_attn_mlp_block(
-                cfg, _at(stacked, i), x, pos_offset=pos_offset, cache=c_in,
-                mode=mode)
+
+            def block(x, p, c_in=c_in):
+                return _apply_attn_mlp_block(cfg, p, x, pos_offset=pos_offset,
+                                             cache=c_in, mode=mode)
+
+            x, new_c, a = run(block, x, blocks[i])
             aux_total = aux_total + a
             if new_c is not None:
                 ys.append({"k": new_c["k"], "v": new_c["v"]})
@@ -308,21 +328,28 @@ def forward(
 
     elif cfg.family == "hybrid":
         shared = params["shared"]["block"]
-        mamba_p, lora_p = params["stacked"]["mamba"], params["stacked"]["lora"]
+        mamba_p = _unstack(params["stacked"]["mamba"], ns * inner)
+        lora_p = _unstack(params["stacked"]["lora"], ns)
         mamba_ys, attn_ys = [], []
         for i in range(ns):
-            inner_ys = []
-            for j in range(inner):
-                c_in = _at(layer_caches["mamba"], i, j) if decode else None
-                x, new_c = _apply_mamba_block(
-                    cfg, _at(mamba_p, i * inner + j), x, cache=c_in,
-                    mode=mode)
-                inner_ys.append(new_c)
-            c_in = _attn_layer_cache(
-                _at(layer_caches["attn"], i) if decode else None, cache_len)
-            x, new_ac, a = _apply_attn_mlp_block(
-                cfg, shared, x, pos_offset=pos_offset, cache=c_in, mode=mode,
-                lora=_at(lora_p, i))
+
+            def super_block(x, mps, lora, i=i):
+                inner_ys = []
+                for j in range(inner):
+                    c_in = _at(layer_caches["mamba"], i, j) if decode else None
+                    x, new_c = _apply_mamba_block(cfg, mps[j], x, cache=c_in,
+                                                  mode=mode)
+                    inner_ys.append(new_c)
+                c_in = _attn_layer_cache(
+                    _at(layer_caches["attn"], i) if decode else None,
+                    cache_len)
+                x, new_ac, a = _apply_attn_mlp_block(
+                    cfg, shared, x, pos_offset=pos_offset, cache=c_in,
+                    mode=mode, lora=lora)
+                return x, inner_ys, new_ac, a
+
+            x, inner_ys, new_ac, a = run(
+                super_block, x, mamba_p[i * inner:(i + 1) * inner], lora_p[i])
             aux_total = aux_total + a
             if keep:
                 mamba_ys.append(_stack(inner_ys))
@@ -332,19 +359,25 @@ def forward(
                                 "attn": _stack(attn_ys)}
 
     elif cfg.family == "ssm":
-        mlstm_p, slstm_p = params["stacked"]["mlstm"], params["stacked"]["slstm"]
+        mlstm_p = _unstack(params["stacked"]["mlstm"], ns * inner)
+        slstm_p = _unstack(params["stacked"]["slstm"], ns)
         mlstm_ys, slstm_ys = [], []
         for i in range(ns):
-            inner_ys = []
-            for j in range(inner):
-                c_in = _at(layer_caches["mlstm"], i, j) if decode else None
-                x, new_c = _apply_mlstm_block(
-                    cfg, _at(mlstm_p, i * inner + j), x, cache=c_in,
-                    mode=mode)
-                inner_ys.append(new_c)
-            sc = _at(layer_caches["slstm"], i) if decode else None
-            x, new_sc = _apply_slstm_block(cfg, _at(slstm_p, i), x, cache=sc,
-                                           mode=mode)
+
+            def super_block(x, mps, sp, i=i):
+                inner_ys = []
+                for j in range(inner):
+                    c_in = _at(layer_caches["mlstm"], i, j) if decode else None
+                    x, new_c = _apply_mlstm_block(cfg, mps[j], x, cache=c_in,
+                                                  mode=mode)
+                    inner_ys.append(new_c)
+                sc = _at(layer_caches["slstm"], i) if decode else None
+                x, new_sc = _apply_slstm_block(cfg, sp, x, cache=sc,
+                                               mode=mode)
+                return x, inner_ys, new_sc
+
+            x, inner_ys, new_sc = run(
+                super_block, x, mlstm_p[i * inner:(i + 1) * inner], slstm_p[i])
             if keep:
                 mlstm_ys.append(_stack(inner_ys))
                 slstm_ys.append(new_sc)
@@ -397,3 +430,14 @@ def caches_from_reference(cfg: ModelConfig, tree, device="cuda") -> dict:
     return {"layers": tree_map(lambda a: _leaf_from_reference(a, device),
                                tree["layers"]),
             "len": int(np.asarray(tree["len"]))}
+
+
+def state_from_reference(cfg: ModelConfig, state, device="cuda") -> dict:
+    """The JAX package's train state (``params``, ``opt.m``, ``opt.v``,
+    ``step``) as the port's: the trees as ``params_from_reference``
+    carries them, ``step`` a 0-d int32 tensor."""
+    return {"params": params_from_reference(cfg, state["params"], device),
+            "opt": {k: params_from_reference(cfg, state["opt"][k], device)
+                    for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -18,7 +18,8 @@ MODULES = sorted(PKG.rglob("*.py"))
 #: scripts that drive the port: run as programs, never imported as modules
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_serve_ab.py",
            ROOT / "examples" / "quickstart_torch.py",
-           ROOT / "examples" / "serve_private_bert_torch.py"]
+           ROOT / "examples" / "serve_private_bert_torch.py",
+           ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _module_name(path: Path) -> str:
@@ -56,7 +57,14 @@ def test_import_leaves_jax_and_repro_unloaded():
               "repro_torch.models.layers", "repro_torch.models.moe",
               "repro_torch.models.ssm", "repro_torch.models.sharding",
               "repro_torch.models.transformer", "repro_torch.serve.engine",
-              "repro_torch.data.pipeline", "repro_torch.utils.log"):
+              "repro_torch.data.pipeline", "repro_torch.utils.log",
+              # training on one device
+              "repro_torch.utils.tree", "repro_torch.train.losses",
+              "repro_torch.train.optimizer", "repro_torch.train.compression",
+              "repro_torch.train.checkpoint", "repro_torch.train.fault",
+              "repro_torch.train.trainer", "repro_torch.launch.specs",
+              "repro_torch.launch.steps", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.analytic"):
         assert m in names, m
     configs = sorted(p.stem for p in (PKG / "configs").glob("*.py")
                      if p.stem != "__init__")

@@ -405,3 +405,56 @@ def test_serve_engine_on_card_decode_matches_prefill(cuda, no_tf32):
                                    mode="prefill")
             assert int(logits[0, :cfg.vocab_size].argmax()) == t
             toks.append(t)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+def test_full_width_train_step_fits_the_card(cuda):
+    """One ``llama3.2-1b`` step at full width and depth (bf16 compute, f32
+    master params and Adam moments, block remat) on 8 x 4,096 tokens as 8
+    microbatches: finite, and its peak memory leaves the card room (24 GB
+    of params, grads and moments, the remat stashes, one block's
+    recompute and one loss chunk's logits)."""
+    import tempfile
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(get_config("llama3.2-1b"),
+                     TrainConfig(microbatches=8, checkpoint_every=10**9,
+                                 checkpoint_dir=d),
+                     global_batch=8, seq_len=4096)
+        tr.init_or_resume(resume=False)
+        met = tr.run(1, with_guard=False)["metrics"][0]
+    peak = torch.cuda.max_memory_allocated()
+    del tr
+    torch.cuda.empty_cache()
+    assert all(np.isfinite(v) for v in met.values())
+    assert peak < 48 * 2**30, peak / 2**30
+
+
+def test_resume_is_bitwise_on_card(cuda):
+    """8 steps straight against 4, a checkpoint, a resumed trainer and 4
+    more, on the card with deterministic algorithms (in a process of its
+    own, so ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--train-resume-child"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["resumed_at"] == 4 and res["losses_equal"]
+    assert res["leaves_equal"] == res["leaves"]
