@@ -100,7 +100,21 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               step card == CPU; resume bit for bit on the card in a child
               process with deterministic algorithms; every other
               architecture reduced, one step card == CPU and block remat on
-              == off (see ``phase_train``).
+              == off (see ``phase_train``);
+15. mesh    — the multi-rank plane (DTensor layouts and collectives over
+              ``torch.distributed``; no kernel of this repository): four
+              ranks on the one card over ``gloo-staged``, started by
+              ``torch.distributed.run`` as ``--mesh-child`` processes (a
+              failing rank fails the phase): (a) ``olmoe-1b-7b`` at full
+              width and depth served on (data=1, model=4), expert
+              parallel, params drawn as each rank's blocks; (b) every
+              registered architecture reduced, 4 ranks == 1 rank; (c)
+              ``llama3.2-1b`` at full width and depth trained by
+              ``Trainer(mesh=)`` on (2, 2) (4 x 1,024 tokens), its first
+              loss == one rank's
+              (run here after the ranks exit); (d) the int8 ring on the
+              card == the CPU's, bit for bit; (e) sharded checkpoints
+              across 4 ranks and 1, bit for bit (see ``phase_mesh``).
 
 Phase 3 also runs the NTT at N = 16384 and 32768 (bit-exact at their HE
 primes, a 31-bit prime and ragged rows; profiler times, warm and cold, at
@@ -2269,6 +2283,593 @@ def phase_train(args):
     return res
 
 
+#: phase 15: ranks, their default backend (on one card: gloo with the
+#: collectives it cannot run on CUDA tensors staged through host memory;
+#: NCCL refuses two ranks on one GPU), and the seconds the ranks may take
+MESH_RANKS, MESH_BACKEND, MESH_CHILD_TIMEOUT = 4, "gloo-staged", 420
+#: (a) OLMoE-1B-7B served at full width and depth on (data=1, model=4)
+MESH_SERVE_ARCH, MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = \
+    "olmoe-1b-7b", 4, 128, 16
+#: (c) Llama-3.2-1B trained at full width and depth on (data=2, model=2);
+#: the sequence cut from train_4k's 4,096 to 1,024 for the phase's time
+#: (on one H100 at 700 W a step of 4 x 4,096 tokens took 76 s over the
+#: host-staged collectives)
+MESH_TRAIN_ARCH, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_MB, \
+    MESH_TRAIN_STEPS = "llama3.2-1b", 4, 1024, 2, 2
+#: the first 4-rank loss against one rank's on the same batch and seed
+#: (bf16 compute, sums in another order)
+MESH_TRAIN_LOSS_RTOL = 2e-2
+#: (b) the reduced architectures: batch, prompt, the meshes, and the
+#: layers (2: a hybrid's one super-block)
+MESH_B, MESH_S, MESH_MESHES, MESH_LAYERS = 4, 16, ((2, 2), (1, 4)), 2
+#: (b) starts no case past this many seconds of the ranks' run (the phase
+#: keeps to 240 s): every architecture on (2, 2) first, then (1, 4)
+MESH_REDUCED_BY = 190
+#: (d) the ring's lengths: one the ranks divide, one they pad
+MESH_RING = (1 << 20, (1 << 20) - 3)
+
+
+def _mesh_emit(rank, key, rec):
+    """Rank 0's record of one part, as a ``MESH`` line for the parent."""
+    if rank == 0:
+        print("MESH " + json.dumps({key: rec}, default=float), flush=True)
+
+
+def _mesh_peaks():
+    """Every rank's peak device memory (GiB), gathered."""
+    import torch
+    import torch.distributed as dist
+
+    mine = torch.cuda.max_memory_allocated() / 2**30
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _grow(caches, extra):
+    """Decode caches with ``extra`` more time slots (zeros) after the
+    prefill's: k and v are (stack, B, T, KV, hd); the recurrent states
+    stay as they are."""
+    import torch
+
+    def rec(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = rec(v)
+            elif k in ("k", "v"):
+                v = _full(v)
+                pad = torch.zeros((*v.shape[:2], extra, *v.shape[3:]),
+                                  dtype=v.dtype, device=v.device)
+                out[k] = torch.cat([v, pad], dim=2)
+            else:
+                out[k] = _full(v)
+        return out
+
+    return {"layers": rec(caches["layers"]), "len": caches["len"]}
+
+
+def _mesh_ring(rank, dev, seed):
+    """(d) ``compressed_psum`` over a (data=4) mesh on the card against the
+    same ring on CPU tensors: bit-equal, and near the exact sum."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.compression import (_ring_allreduce_int8,
+                                               compressed_psum)
+
+    import torch.distributed as dist
+
+    mesh = make_mesh((MESH_RANKS,), ("data",), device=DEVICE)
+    # the CPU ring runs over a gloo group of the same ranks (NCCL takes no
+    # host tensor)
+    group = dist.new_group(list(range(MESH_RANKS)), backend="gloo")
+    out = {}
+    for n in MESH_RING:
+        parts = np.random.default_rng(seed + n).standard_normal(
+            (MESH_RANKS, n)).astype(np.float32)
+        mine = torch.from_numpy(parts[rank])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = compressed_psum(mine.to(dev), "data", mesh)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        cpu = _ring_allreduce_int8(mine.clone(), group)
+        exact = parts.sum(0)
+        rel = float(np.abs(card.cpu().numpy() - exact).max()
+                    / np.abs(exact).max())
+        out[str(n)] = {"bit_equal_cpu": bool(torch.equal(card.cpu(), cpu)),
+                       "rel_err": rel, "ms": ms,
+                       "wire_bytes_per_rank": 2 * (MESH_RANKS - 1)
+                       * (-(-n // MESH_RANKS) + 4)}
+    return out
+
+
+def _mesh_ckpt(rank, dev, seed):
+    """(e) Sharded checkpoints (reduced ``llama3.2-1b``, (2, 2)): a 4-rank
+    save restored on one rank, and a one-rank save restored onto 4 ranks
+    with ``shardings=``, bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import TrainConfig, get_config, reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (abstract_state, lay_out,
+                                          state_shardings)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import checkpoint as CK
+
+    cfg = reduced_config(get_config("llama3.2-1b"))
+    mesh = make_mesh((2, 2), ("data", "model"), device=DEVICE)
+    sh = state_shardings(cfg, abstract_state(cfg, TrainConfig()), mesh)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_params(cfg, gen)
+    state = {"params": params,
+             "opt": {k: _mesh_tree_randn(params, gen) for k in ("m", "v")},
+             "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    box = [tempfile.mkdtemp(prefix="mesh_ckpt_") if rank == 0 else None]
+    dist.broadcast_object_list(box)
+    d = box[0]
+    try:
+        CK.save(f"{d}/four", 3, lay_out(state, sh, mesh))
+        same_one = True
+        if rank == 0:
+            step, st = CK.restore(f"{d}/four", device=dev)
+            same_one = step == 3 and all(
+                torch.equal(a, b) for a, b in zip(_leaves(st),
+                                                  _leaves(state)))
+            CK.save(f"{d}/one", 4, state)
+        dist.barrier()
+        step, st = CK.restore(f"{d}/one", shardings=sh, device=dev)
+        full = [_full(x) for x in _leaves(st)]
+        same_four = step == 4 and all(torch.equal(a, b) for a, b in
+                                      zip(full, _leaves(state)))
+        local = sum(x.to_local().numel() for x in _leaves(st))
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+    return {"four_to_one_bitwise": bool(same_one),
+            "one_to_four_bitwise": bool(same_four),
+            "leaves": len(full), "local_elems_rank0": local,
+            "elems": sum(x.numel() for x in full)}
+
+
+def _mesh_tree_randn(tree, gen):
+    import torch
+
+    return {k: _mesh_tree_randn(v, gen) if isinstance(v, dict) else
+            torch.randn(v.shape, generator=gen, device=v.device) * 1e-3
+            for k, v in tree.items()}
+
+
+def _mesh_reduced(rank, dev, seed, deadline):
+    """(b) Every registered architecture at ``reduced_config`` (f32, TF32
+    off) on 4 ranks == one rank, on each mesh of ``MESH_MESHES``: prefill
+    logits and caches, one decode step, one train step's loss, grad norm
+    and params, within ``MODEL_TOL``. Expert-parallel configs get a
+    capacity for every token here. Returns the worst differences."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import (ShapeConfig, TrainConfig, get_config,
+                                    list_configs, reduced_config)
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.tree import tree_map
+
+    B, S = MESH_B, MESH_S
+    tc = TrainConfig(total_steps=20, warmup_steps=3, seed=seed)
+    out = {}
+    for mshape in MESH_MESHES:
+        mesh = make_mesh(mshape, ("data", "model"), device=DEVICE)
+        for name in list_configs():
+            if time.perf_counter() > deadline:
+                break
+            cfg = reduced_config(get_config(name), num_layers=MESH_LAYERS)
+            if cfg.moe_impl == "a2a":
+                # capacity for every token: the expert-parallel path drops
+                # none, so it computes what one rank's dense path does
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=cfg.num_experts
+                    / cfg.num_experts_per_token)
+            t0 = time.perf_counter()
+            params = init_params(cfg, torch.Generator(dev).manual_seed(seed))
+            rng = np.random.default_rng(seed)
+            batch = _on(_model_batch(cfg, B, S, rng), dev)
+            step_b = _on(_model_batch(cfg, B, S, rng, decode=True), dev)
+            n_lab = S
+            labels = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, n_lab)).astype(np.int32)).to(dev)
+            errs = {}
+
+            def cmp(what, got, want):
+                got, want = _full(got), _full(want)
+                if rank == 0:
+                    assert torch.isfinite(got).all(), (name, what)
+                    torch.testing.assert_close(
+                        got, want, **MODEL_TOL,
+                        msg=lambda m: f"{name} {mshape} {what}: {m}")
+                    errs[what] = max(errs.get(what, 0.0),
+                                     float((got - want).abs().max()))
+
+            p1, _, _, _ = ST.build_prefill_step(cfg)
+            p4, _, _, _ = ST.build_prefill_step(
+                cfg, mesh, ShapeConfig("p", S, B, "prefill"))
+            l1, c1 = p1(params, batch)
+            l4, c4 = p4(params, batch)
+            cmp("prefill_logits", l4, l1)
+            for a, b in zip(_leaves(c4["layers"]), _leaves(c1["layers"])):
+                cmp("prefill_caches", a, b)
+            grown = _grow(c1, 4)
+            d1, _, _, _ = ST.build_decode_step(cfg)
+            d4, _, _, _ = ST.build_decode_step(
+                cfg, mesh, ShapeConfig("d", S + 4, B, "decode"))
+            cmp("decode_logits", d4(params, step_b, grown)[0],
+                d1(params, step_b, grown)[0])
+
+            def fresh():
+                p = tree_map(torch.clone, params)
+                return {"params": p, "opt": init_opt_state(p),
+                        "step": torch.tensor(5, dtype=torch.int32,
+                                             device=dev)}
+
+            tb = {**batch, "labels": labels}
+            t1, _, _, _ = ST.build_train_step(cfg, tc)
+            t4, _, _, _ = ST.build_train_step(
+                cfg, tc, mesh, ShapeConfig("t", S, B, "train"))
+            s1, m1 = t1(fresh(), tb)
+            s4, m4 = t4(fresh(), tb)
+            for k in ("loss", "grad_norm"):
+                cmp(f"train_{k}", m4[k], m1[k])
+            for a, b in zip(_leaves(s4["params"]), _leaves(s1["params"])):
+                cmp("train_params", a, b)
+            out[f"{name} {mshape[0]}x{mshape[1]}"] = {
+                **errs, "s": time.perf_counter() - t0}
+    return out
+
+
+def _mesh_serve(rank, dev, seed):
+    """(a) OLMoE-1B-7B at full width and depth served on (data=1, model=4):
+    bf16 serving params (TP-only, 16 experts a rank) drawn leaf by leaf as
+    each rank's blocks, a prefill of 4 x 128 tokens, then 16 greedy decode
+    steps through the mesh builders (expert-parallel MoE)."""
+    import torch
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config(MESH_SERVE_ARCH)
+    B, S, n = MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"), device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prefill, in_sh, _, rules = ST.build_prefill_step(
+        cfg, mesh, ShapeConfig("prefill", S, B, "prefill"))
+    decode, _, _, _ = ST.build_decode_step(
+        cfg, mesh, ShapeConfig("decode", S + n, B, "decode"))
+    params = _mesh_local_params(cfg, in_sh[0], seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local_bytes = sum(x.to_local().numel() * x.element_size()
+                      for x in _leaves(params))
+    tokens = torch.from_numpy(SyntheticLMData(cfg, B, S, seed=seed)
+                              .batch_at(0)["tokens"]).to(dev)
+    ep = [0]
+    moe_ep = MOE._moe_ep
+
+    def counted(*a):
+        ep[0] += 1
+        return moe_ep(*a)
+
+    MOE._moe_ep = counted
+    try:
+        times = []
+        for _ in range(2):  # the second prefill is the warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        caches = _grow(caches, n)
+        out_tokens, step_ms = [], []
+        for i in range(n):
+            nxt = _full(logits).argmax(-1)
+            out_tokens.append(nxt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(params, {"tokens": nxt[:, None]}, caches)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        last = _full(logits)
+    finally:
+        MOE._moe_ep = moe_ep
+    toks = torch.stack(out_tokens, 1)
+    assert torch.isfinite(last).all() and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()), "serve output"
+    assert ep[0] == cfg.num_layers * (2 + n), ep  # every MoE layer, EP
+    warm = step_ms[2:]
+    return {"config": MESH_SERVE_ARCH, "mesh": [1, MESH_RANKS],
+            "experts_per_rank": cfg.num_experts // MESH_RANKS,
+            "batch": B, "prompt": S, "decode_steps": n,
+            "init_s": init_s, "prefill_ms_cold": times[0],
+            "prefill_ms": times[1], "decode_ms_per_step": sum(warm)
+            / len(warm), "decode_ms_first": step_ms[0],
+            "decode_tokens_per_s": B * len(warm) / (sum(warm) / 1e3),
+            "ep_calls": ep[0], "param_bytes_rank0": local_bytes,
+            "peak_gib": _mesh_peaks(),
+            "tokens_head": toks[0, :8].tolist()}
+
+
+def _mesh_local_params(cfg, shardings, seed, dev):
+    """Serving params of ``cfg`` (``serve_param_struct``: bf16 matrices,
+    f32 vectors) as DTensors laid out by ``shardings``, each rank keeping
+    only its block: every leaf is drawn from a generator of its own on the
+    card (a stacked leaf one layer at a time, so no f32 leaf is ever
+    whole), N(0, 1/fan-in) for matrices, N(0, 0.02) for tables, ones for
+    scales, zeros for biases; every rank draws the same values, and cuts
+    its block."""
+    import math
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.launch.steps import serve_param_struct
+
+    counter = [0]
+
+    def leaf(path, st, sh):
+        shape = tuple(st.shape)
+        local, off = compute_local_shape_and_global_offset(
+            shape, sh.mesh, sh.placements)
+        name = path[-1]
+        counter[0] += 1
+        if name in ("scale", "d_skip"):
+            block = torch.ones(local, dtype=st.dtype, device=dev)
+        elif name in ("bias", "dt_bias", "a_log"):
+            block = torch.zeros(local, dtype=st.dtype, device=dev)
+        else:
+            stacked = "stacked" in path
+            std = 0.02 if name == "table" else 1.0 / math.sqrt(shape[-2])
+            cut = tuple(slice(o, o + k) for o, k in
+                        zip(off[stacked:], local[stacked:]))
+            blocks = []
+            for layer in range(shape[0] if stacked else 1):
+                g = torch.Generator(dev).manual_seed(
+                    seed * 1_000_003 + counter[0] * 1_009 + layer)
+                whole = torch.randn(shape[stacked:], generator=g,
+                                    device=dev) * std
+                blocks.append(whole[cut].to(st.dtype).clone())
+                del whole
+            block = torch.stack(blocks) if stacked else blocks[0]
+        return DTensor.from_local(
+            block, sh.mesh, sh.placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    def rec(st, sh, path):
+        return {k: rec(st[k], sh[k], path + (k,)) if isinstance(st[k], dict)
+                else leaf(path + (k,), st[k], sh[k]) for k in st}
+
+    return rec(serve_param_struct(cfg), shardings, ())
+
+
+def _mesh_train(rank, dev, seed):
+    """(c) Llama-3.2-1B at full width and depth trained by ``Trainer(mesh=
+    (data=2, model=2), shape=)``: FSDP + TP, the bf16 cast before the FSDP
+    gather, block remat, global batch 4 x ``MESH_TRAIN_SEQ`` as 2
+    microbatches, 2 steps."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config(MESH_TRAIN_ARCH)
+    B, S = MESH_TRAIN_BATCH, MESH_TRAIN_SEQ
+    mesh = make_mesh((2, 2), ("data", "model"), device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        tc = TrainConfig(microbatches=MESH_TRAIN_MB,
+                         checkpoint_every=10**9, checkpoint_dir=ckpt,
+                         seed=seed)
+        tr = Trainer(cfg, tc, global_batch=B, seq_len=S, mesh=mesh,
+                     shape=ShapeConfig("train", S, B, "train"), device=dev)
+        t0 = time.perf_counter()
+        tr.init_or_resume(resume=False)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        steps = []
+        for _ in range(MESH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            met = tr.run(1, with_guard=False)["metrics"][0]
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0, **met})
+    for st in steps:
+        assert math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+    warm = steps[-1]["s"]
+    return {"config": MESH_TRAIN_ARCH, "mesh": [2, 2], "global_batch": B,
+            "seq_len": S, "microbatches": MESH_TRAIN_MB, "init_s": init_s,
+            "steps": steps, "warm_step_s": warm,
+            "tokens_per_s": B * S / warm, "peak_gib": _mesh_peaks()}
+
+
+def _mesh_child(args):
+    """The ranks of phase 15 (``torch.distributed.run``): parts (d), (e),
+    (a), (c) and (b) in that order; rank 0 prints one ``MESH`` JSON line a
+    part."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import STAGED, backend_name, init_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_ranks(args.mesh_backend, device=DEVICE)
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    _mesh_emit(rank, "backend", {
+        "name": backend_name(),
+        "staged": list(STAGED) if backend_name() == "gloo-staged" else [],
+        "ranks": dist.get_world_size(), "device": str(dev),
+        "cards": torch.cuda.device_count(),
+        "card": torch.cuda.get_device_name(dev)})
+    for key, part in (("ring", lambda: _mesh_ring(rank, dev, args.seed)),
+                      ("ckpt", lambda: _mesh_ckpt(rank, dev, args.seed)),
+                      ("serve", lambda: _mesh_serve(rank, dev, args.seed)),
+                      ("train", lambda: _mesh_train(rank, dev, args.seed)),
+                      ("reduced", lambda: _mesh_reduced(
+                          rank, dev, args.seed, t0 + MESH_REDUCED_BY))):
+        t_part = time.perf_counter()
+        rec = part()
+        torch.cuda.synchronize()
+        dist.barrier()
+        _mesh_emit(rank, key, {"result": rec,
+                               "part_s": time.perf_counter() - t_part})
+    dist.destroy_process_group()
+
+
+def phase_mesh(args):
+    """The multi-rank plane on the card: 4 ranks on the one card over
+    ``gloo-staged`` (``launch/mesh.py``), in child processes started by
+    ``torch.distributed.run`` (``_mesh_child``); torch ops and DTensor
+    collectives, no kernel of this repository. A failing rank fails the
+    phase. Then, in this process, one rank's first step of (c) on the same
+    batch and seed, whose loss the 4-rank run's must equal within
+    ``MESH_TRAIN_LOSS_RTOL``."""
+    import os
+    import signal
+
+    import torch
+    from repro_torch.config import TrainConfig, get_config, list_configs
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={MESH_RANKS}", str(Path(__file__).resolve()),
+           "--mesh-child", "--seed", str(args.seed), "--mesh-backend",
+           getattr(args, "mesh_backend", MESH_BACKEND)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"mesh ranks past {MESH_CHILD_TIMEOUT} s: "
+                             f"{out[-3000:]} {err[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, f"mesh ranks failed: {out[-3000:]} " \
+        f"{err[-8000:]}"
+    res = {}
+    for line in out.splitlines():
+        if line.startswith("MESH "):
+            res.update(json.loads(line[5:]))
+    assert set(res) == {"backend", "ring", "ckpt", "reduced", "serve",
+                        "train"}, sorted(res)
+    ranks_s = time.perf_counter() - t_phase
+    bk = res["backend"]
+    print(f"[mesh] {bk['ranks']} ranks on {bk['cards']} card(s) (rank 0 "
+          f"on {bk['device']}, {bk['card']}), backend {bk['name']} (staged "
+          f"through pinned host buffers: {'; '.join(bk['staged']) or 'none'})",
+          flush=True)
+    ring = res["ring"]["result"]
+    for n, r in ring.items():
+        assert r["bit_equal_cpu"] and r["rel_err"] < 0.08, (n, r)
+    print("[mesh] (d) compressed_psum (int8 ring) on the card == the CPU "
+          "ring bit for bit; relative error against the exact sum " +
+          ", ".join(f"{r['rel_err']:.4f} at {n} ({r['ms']:.1f} ms)"
+                    for n, r in ring.items()), flush=True)
+    ck = res["ckpt"]["result"]
+    assert ck["four_to_one_bitwise"] and ck["one_to_four_bitwise"], ck
+    assert ck["local_elems_rank0"] < ck["elems"], ck
+    print(f"[mesh] (e) checkpoints: 4-rank save -> 1-rank restore and "
+          f"1-rank save -> restore(shardings=) on 4 ranks, all "
+          f"{ck['leaves']} leaves bit for bit (rank 0 holds "
+          f"{ck['local_elems_rank0']} of {ck['elems']} elements)",
+          flush=True)
+    red = res["reduced"]["result"]
+    names = sorted({k.split()[0] for k in red})
+    assert len({k.split()[0] for k in red if k.endswith(" 2x2")}) == \
+        len(list_configs()), sorted(red)  # every architecture on (2, 2)
+    worst = max(max(v for k, v in r.items() if k != "s")
+                for r in red.values())
+    print(f"[mesh] (b) {len(red)} cases, {len(names)} architectures "
+          f"(reduced, {MESH_LAYERS} layers, f32): 4 ranks == 1 rank "
+          f"(prefill logits and caches, a decode step, a train step's loss,"
+          f" grad norm and params; worst {worst:.2e}, tolerance "
+          f"rtol=atol=2e-3) in {res['reduced']['part_s']:.1f} s",
+          flush=True)
+    sv = res["serve"]["result"]
+    print(f"[mesh] (a) {sv['config']} full width and depth on (data=1, "
+          f"model={MESH_RANKS}), {sv['experts_per_rank']} experts a rank, "
+          f"bf16: prefill {sv['batch']} x {sv['prompt']} "
+          f"{sv['prefill_ms']:.1f} ms warm ({sv['prefill_ms_cold']:.1f} "
+          f"cold), decode {sv['decode_ms_per_step']:.1f} ms a step "
+          f"({sv['decode_tokens_per_s']:.1f} tokens/s), {sv['ep_calls']} "
+          f"expert-parallel MoE calls; params drawn in {sv['init_s']:.1f} s"
+          f", {sv['param_bytes_rank0'] / 2**30:.2f} GiB on rank 0; peak "
+          "GiB per rank " + ", ".join(f"{g:.2f}" for g in sv["peak_gib"]),
+          flush=True)
+    tr = res["train"]["result"]
+    print(f"[mesh] (c) {tr['config']} full width and depth trained on "
+          f"(data=2, model=2), FSDP + TP, {tr['global_batch']} x "
+          f"{tr['seq_len']} tokens as {tr['microbatches']} microbatches: "
+          + "; ".join(f"{st['s']:.2f} s loss {st['loss']:.4f} grad_norm "
+                      f"{st['grad_norm']:.4f}" for st in tr["steps"])
+          + f"; {tr['tokens_per_s']:.1f} tokens/s; peak GiB per rank "
+          + ", ".join(f"{g:.2f}" for g in tr["peak_gib"]), flush=True)
+
+    # one rank's first step on the same batch and seed
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory() as ckpt:
+        tc = TrainConfig(microbatches=MESH_TRAIN_MB, checkpoint_every=10**9,
+                         checkpoint_dir=ckpt, seed=args.seed)
+        one = Trainer(cfg, tc, global_batch=MESH_TRAIN_BATCH,
+                      seq_len=MESH_TRAIN_SEQ, device=DEVICE)
+        one.init_or_resume(resume=False)
+        loss1 = one.run(1, with_guard=False)["losses"][0]
+    del one
+    torch.cuda.empty_cache()
+    loss4 = tr["steps"][0]["loss"]
+    rel = abs(loss4 - loss1) / abs(loss1)
+    assert rel < MESH_TRAIN_LOSS_RTOL, (loss4, loss1)
+    res["train_one_rank"] = {"loss": loss1, "rel_diff": rel,
+                             "s": time.perf_counter() - t0}
+    res["seconds"] = time.perf_counter() - t_phase
+    res["ranks_s"] = ranks_s
+    print(f"[mesh] (c) first loss on 4 ranks {loss4:.5f}, on one rank "
+          f"{loss1:.5f} (relative {rel:.2e} < {MESH_TRAIN_LOSS_RTOL}); "
+          f"phase {res['seconds']:.1f} s (ranks {ranks_s:.1f} s: d "
+          f"{res['ring']['part_s']:.1f}, e {res['ckpt']['part_s']:.1f}, b "
+          f"{res['reduced']['part_s']:.1f}, a {res['serve']['part_s']:.1f},"
+          f" c {res['train']['part_s']:.1f})", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=1,
@@ -2288,6 +2889,13 @@ def main(argv=None) -> int:
                          " prints no kernels or ok line")
     ap.add_argument("--train-resume-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", default=MESH_BACKEND,
+                    choices=("gloo-staged", "nccl"),
+                    help="the mesh phase's backend: four ranks on one card "
+                         "over gloo-staged (the default), or one card a "
+                         "rank over nccl (needs four cards)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2303,6 +2911,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.train_resume_child:
         _resume_child()
+        return 0
+    if args.mesh_child:
+        _mesh_child(args)
         return 0
     t_all = time.perf_counter()
     name, smi = phase_device()
@@ -2349,6 +2960,8 @@ def main(argv=None) -> int:
     lap("model")
     train = phase_train(args)
     lap("train")
+    mesh = phase_mesh(args)
+    lap("mesh")
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
            for p in _sources()}
@@ -2456,7 +3069,7 @@ def main(argv=None) -> int:
             "parity": parity, "gates": gates,
             "he": he, "serve": serve, "walks": walks,
             "profile": prof, "net": net, "gateway": gateway,
-            "eager": eager, "model": model, "train": train,
+            "eager": eager, "model": model, "train": train, "mesh": mesh,
             "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")

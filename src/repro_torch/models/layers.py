@@ -35,9 +35,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.sharding import axis_size_of, shard
+from repro_torch.models.sharding import (active_rules, axis_size_of,
+                                         local_apply, merge_last,
+                                         rows_whole_grad, shard, split_last,
+                                         whole_dim, whole_rows)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -73,7 +77,7 @@ def norm_init(gen, cfg: ModelConfig, d: int, lead: Tuple[int, ...] = ()):
 
 
 def apply_norm(cfg: ModelConfig, p, x):
-    xf = x.float()
+    xf = whole_dim(x).float()
     if cfg.norm_type == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
@@ -87,13 +91,13 @@ def apply_norm(cfg: ModelConfig, p, x):
 
 def rms_head_norm(scale, x):
     """qk-norm: RMS over the head dim."""
-    xf = x.float()
+    xf = whole_dim(x).float()
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
 
 
 def linear(p, x, dtype):
-    return x.to(dtype) @ p["w"].to(dtype)
+    return rows_whole_grad(whole_rows(x).to(dtype) @ p["w"].to(dtype))
 
 
 def f32_einsum(eq: str, *ops):
@@ -170,13 +174,17 @@ def _flash_chunks(cfg, q, k, v, q_offset, causal):
     q is processed in parallel chunks; kv chunks are walked in order with a
     running (m, l, acc). GQA expansion (KV -> H) happens per kv chunk, so
     the expanded buffer never exceeds one chunk. Returns (B, S, H, hd).
+
+    Under sharding rules the walk runs on each rank's block
+    (``local_apply``): q chunks split over batch and ``attn_seq`` or
+    ``heads``, keys and values expanded to H heads and whole along time,
+    so no rank needs another's scores.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     qpk = H // KV
-    scale = 1.0 / math.sqrt(hd)
 
-    # the q-chunk count is a multiple of the attn_seq shard count (1 here)
+    # the q-chunk count is a multiple of the attn_seq shard count
     seq_shards = axis_size_of("attn_seq")
     nq = seq_shards * max(1, -(-S // (cfg.attn_chunk * seq_shards)))
     while S % nq != 0:
@@ -185,22 +193,38 @@ def _flash_chunks(cfg, q, k, v, q_offset, causal):
     kc = min(cfg.attn_chunk, T)
     while T % kc:  # non-power-of-two prompt lengths (serving)
         kc -= 1
-    nk = T // kc
 
     q5 = shard(q.reshape(B, nq, qc, H, hd), "batch", "attn_seq", None,
                "heads", None)
-    dev = q.device
-    q_pos = (q_offset + torch.arange(S, dtype=torch.int64, device=dev)
+    q_pos = (q_offset + torch.arange(S, dtype=torch.int64, device=q.device)
              ).reshape(nq, qc)
+    q5_names = ("batch", "attn_seq", None, "heads", None)
+    if active_rules() is not None:
+        k, v, qpk = _expand_kv(k, qpk), _expand_kv(v, qpk), 1
+    kv_names = ("batch", None, "heads", None)
+    out = local_apply(
+        lambda q5, k, v, q_pos: _flash_walk(q5, k, v, q_pos, qpk, kc,
+                                            causal),
+        (q5, k, v, q_pos), (q5_names, kv_names, kv_names,
+                            ("attn_seq", None)), (q5_names,))
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
+
+def _flash_walk(q5, k, v, q_pos, qpk: int, kc: int, causal: bool):
+    """The kv-chunk walk of ``_flash_chunks`` on plain tensors: q5 (B, nq,
+    qc, H, hd), k/v (B, T, H/qpk, hd), q_pos (nq, qc) -> f32 (B, nq, qc,
+    H, hd)."""
+    B, nq, qc, H, hd = q5.shape
+    scale = 1.0 / math.sqrt(hd)
+    dev = q5.device
     m = torch.full((B, nq, qc, H), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((B, nq, qc, H), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, nq, qc, H, hd), dtype=torch.float32, device=dev)
-    for j in range(nk):
+    for j in range(k.shape[1] // kc):
         kj, vj = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
         k_pos = j * kc + torch.arange(kc, dtype=torch.int64, device=dev)
-        kx = shard(_expand_kv(kj, qpk), "batch", None, "heads", None)
-        vx = shard(_expand_kv(vj, qpk), "batch", None, "heads", None)
+        kx = _expand_kv(kj, qpk)
+        vx = _expand_kv(vj, qpk)
         # scores: (B, nq, qc, H, kc), f32
         s = f32_einsum("bnqhd,bkhd->bnqhk", q5, kx) * scale
         if causal:
@@ -213,15 +237,30 @@ def _flash_chunks(cfg, q, k, v, q_offset, causal):
         pv = f32_einsum("bnqhk,bkhd->bnqhd", p.to(vx.dtype), vx)
         acc = acc * corr[..., None] + pv
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return acc / torch.clamp_min(l[..., None], 1e-30)
 
 
 def _decode_attn(cfg, q, k_cache, v_cache, cache_len: int):
-    """q: (B, 1, H, hd); caches (B, T, KV, hd); attends to [0, cache_len]."""
+    """q: (B, 1, H, hd); caches (B, T, KV, hd); attends to [0, cache_len].
+
+    Under sharding rules each rank attends for its batch rows and heads
+    (``local_apply``), with the caches whole along time and expanded to
+    the H query heads."""
+    H, KV = q.shape[2], k_cache.shape[2]
+    qpk = H // KV
+    if active_rules() is not None:
+        k_cache, v_cache, qpk = (_expand_kv(k_cache, qpk),
+                                 _expand_kv(v_cache, qpk), 1)
+    heads = ("batch", None, "heads", None)
+    return local_apply(
+        lambda q, k, v: _decode_core(q, k, v, cache_len, qpk),
+        (q, k_cache, v_cache), (heads, heads, heads), (heads,))
+
+
+def _decode_core(q, k_cache, v_cache, cache_len: int, qpk: int):
+    """``_decode_attn`` on plain tensors (KV · qpk = H)."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
-    qpk = H // KV
     scale = 1.0 / math.sqrt(hd)
     q4 = q.reshape(B, KV, qpk, hd)
     s = f32_einsum("bgph,btgh->bgpt", q4, k_cache) * scale
@@ -249,15 +288,16 @@ def attention(
     B, S, d = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
+    x = whole_rows(x)  # gathered once for the q, k and v products
 
     q = linear(p["wq"], x, dt)
     if lora is not None:  # zamba2 per-invocation LoRA on the q projection
         q = q + linear(lora["lora_b"], linear(lora["lora_a"], x, dt), dt)
     k = linear(p["wk"], x, dt)
     v = linear(p["wv"], x, dt)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = split_last(q, H, hd)
+    k = split_last(k, KV, hd)
+    v = split_last(v, KV, hd)
 
     if cfg.qk_norm:
         q = rms_head_norm(p["qn"]["scale"], q)
@@ -283,11 +323,14 @@ def attention(
             # overwrites the last slot; the port refuses instead
             raise ValueError(f"KV cache full: writing position {pos_idx} "
                              f"of a cache with capacity {T}")
-        # functional, as the reference: the caller's cache is not written
-        k_cache = cache["k"].clone()
-        v_cache = cache["v"].clone()
-        k_cache[:, pos_idx] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, pos_idx] = v[:, 0].to(v_cache.dtype)
+        # functional, as the reference: the caller's cache is not written.
+        # A select over time rather than an indexed write: the cache's time
+        # dim may be sharded over ranks (``kv_seq``), where an indexed
+        # write into a DTensor would land at the local index
+        at = (torch.arange(T, device=x.device) == pos_idx)[None, :, None,
+                                                            None]
+        k_cache = torch.where(at, k.to(cache["k"].dtype), cache["k"])
+        v_cache = torch.where(at, v.to(cache["v"].dtype), cache["v"])
         k_cache = shard(k_cache, "batch", "kv_seq", None, None)
         v_cache = shard(v_cache, "batch", "kv_seq", None, None)
         out = _decode_attn(cfg, q, k_cache, v_cache, pos_idx)
@@ -300,7 +343,7 @@ def attention(
             new_cache = {"k": kc, "v": vc, "len": S}
 
     out = shard(out, "batch", "attn_seq", "heads", None)
-    y = out.reshape(B, S, H * hd) @ p["wo"]["w"].to(dt)
+    y = rows_whole_grad(whole_rows(merge_last(out)) @ p["wo"]["w"].to(dt))
     return y, new_cache
 
 
@@ -330,6 +373,7 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None,
 
 def mlp(cfg: ModelConfig, p, x):
     dt = x.dtype
+    x = whole_rows(x)  # gathered once for both input products
     h = _act(cfg, linear(p["w1"], x, dt))
     if cfg.gated_mlp:
         h = h * linear(p["w3"], x, dt)
@@ -347,10 +391,21 @@ def init_embedding(gen, vocab: int, d: int):
 
 
 def embed(p, tokens, dtype):
-    # gather, then cast: the same values as casting the whole table first
-    return p["table"][tokens].to(dtype)
+    # gather, then cast: the same values as casting the whole table first.
+    # A sharded table that needs a gradient is read whole on each rank for
+    # its batch rows (``local_apply``): the backward of an indexed read of
+    # a sharded table (``index_put``) has no DTensor rule on every torch
+    # version, and ``F.embedding``'s masked partial sums clash with a
+    # batch split
+    table = p["table"]
+    if isinstance(table, DTensor) and table.requires_grad:
+        return local_apply(lambda t, i: t[i], (table, tokens),
+                           ((None, None), ("batch", None)),
+                           (("batch", None, None),)).to(dtype)
+    return table[tokens].to(dtype)
 
 
 def unembed(p, x, dtype=torch.float32):
     """logits = x @ table^T, accumulated in f32 for loss stability."""
-    return f32_einsum("bsd,vd->bsv", x, p["table"].to(x.dtype)).to(dtype)
+    return rows_whole_grad(f32_einsum("bsd,vd->bsv", whole_rows(x),
+                                      p["table"].to(x.dtype))).to(dtype)

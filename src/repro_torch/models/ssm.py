@@ -37,7 +37,9 @@ from repro_torch.models.layers import (
     norm_init,
     normal,
 )
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import (local_apply, local_pointwise,
+                                         merge_last, shard, split_last,
+                                         whole_dim, whole_rows)
 
 f32 = torch.float32
 
@@ -65,7 +67,20 @@ def chunked_linear_rnn(
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, N, P)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (Y (B,L,H,P), final_state (B,H,N,P))."""
+    """Returns (Y (B,L,H,P), final_state (B,H,N,P)).
+
+    Under sharding rules each rank runs the scan on its block (batch rows
+    and ``ssm_heads``), whole along the sequence (``local_apply``)."""
+    seq = ("batch", None, "ssm_heads", None)
+    state = ("batch", "ssm_heads", None, None)
+    return local_apply(
+        lambda *a: _chunked_linear_rnn(*a, chunk=chunk),
+        (C, Bm, X, logdecay, initial_state),
+        (seq, seq, seq, ("batch", None, "ssm_heads"),
+         None if initial_state is None else state), (seq, state))
+
+
+def _chunked_linear_rnn(C, Bm, X, logdecay, initial_state, *, chunk):
     B, L, H, N = C.shape
     P = X.shape[-1]
     cl = min(chunk, L)
@@ -108,7 +123,15 @@ def chunked_linear_rnn(
 def linear_rnn_step(
     C, Bm, X, logdecay, state
 ):  # shapes: (B,H,N), (B,H,N), (B,H,P), (B,H), (B,H,N,P)
-    """Single decode step of the same recurrence."""
+    """Single decode step of the same recurrence (under sharding rules on
+    each rank's batch rows and heads, ``local_apply``)."""
+    bh = ("batch", "ssm_heads", None)
+    st = ("batch", "ssm_heads", None, None)
+    return local_apply(_rnn_step, (C, Bm, X, logdecay, state),
+                       (bh, bh, bh, ("batch", "ssm_heads"), st), (bh, st))
+
+
+def _rnn_step(C, Bm, X, logdecay, state):
     s = state.float() * torch.exp(logdecay.float())[..., None, None]
     s = s + Bm.float()[..., None] * X.float()[..., None, :]
     y = f32_einsum("bhn,bhnp->bhp", C, s)
@@ -167,7 +190,7 @@ def _causal_conv(xbc, w, state=None):
 
 
 def _gated_rms(y, scale, dtype):
-    yf = y.float()
+    yf = whole_dim(y).float()
     y = yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
     return (y * scale).to(dtype)
 
@@ -178,6 +201,7 @@ def mamba2(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
     d_in, H, P, N = mamba2_dims(cfg)
     dt_ = x.dtype
 
+    x = whole_rows(x)  # gathered once for the five input products
     xin = linear(p["wx"], x, dt_)  # (B,L,d_in)
     z = linear(p["wz"], x, dt_)
     Bv = linear(p["wB"], x, dt_)  # (B,L,N)
@@ -194,7 +218,7 @@ def mamba2(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
     A = -torch.exp(p["a_log"])  # (H,)
     logdecay = dt * A[None, None, :]  # (B,L,H)
 
-    xh = shard(xin.reshape(B, L, H, P), "batch", None, "ssm_heads", None)
+    xh = shard(split_last(xin, H, P), "batch", None, "ssm_heads", None)
     Bh = Bv[:, :, None, :].expand(B, L, H, N)
     Ch = Cv[:, :, None, :].expand(B, L, H, N)
     xs = xh * dt[..., None].to(dt_)
@@ -210,7 +234,7 @@ def mamba2(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
             Ch, Bh, xs, logdecay, cfg.ssm_chunk, initial_state=ssm_state)
 
     y = y + xh.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(B, L, d_in).to(dt_)
+    y = merge_last(y).to(dt_)
     # gated RMSNorm (Mamba2 uses RMSNorm(y * silu(z)))
     y = _gated_rms(y * F.silu(z), p["gn"]["scale"], dt_)
     out = linear(p["wo"], y, dt_)
@@ -260,17 +284,18 @@ def mlstm(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
     d_in, H, P = mlstm_dims(cfg)
     dt_ = x.dtype
 
+    x = whole_rows(x)  # gathered once for both input products
     up = linear(p["wup"], x, dt_)
     z = linear(p["wz"], x, dt_)
     conv_state = cache["conv"] if cache is not None else None
     c, new_conv = _causal_conv(up, p["conv"]["w"], conv_state)
     c = F.silu(c)
 
-    q = linear(p["wq"], c, dt_).reshape(B, L, H, P) / math.sqrt(P)
-    k = linear(p["wk"], c, dt_).reshape(B, L, H, P) / math.sqrt(P)
-    v = linear(p["wv"], up, dt_).reshape(B, L, H, P)
+    q = split_last(linear(p["wq"], c, dt_), H, P) / math.sqrt(P)
+    k = split_last(linear(p["wk"], c, dt_), H, P) / math.sqrt(P)
+    v = split_last(linear(p["wv"], up, dt_), H, P)
 
-    logf = F.logsigmoid(linear(p["wf"], c, f32))  # (B,L,H)
+    logf = local_pointwise(F.logsigmoid, linear(p["wf"], c, f32))  # (B,L,H)
     logi = torch.clamp_max(linear(p["wi"], c, f32), 0.0)
     i_gate = torch.exp(logi)
 
@@ -293,7 +318,7 @@ def mlstm(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
             q, kx, ones, logf, cfg.ssm_chunk, initial_state=norm_state)
     h = h / torch.clamp_min(nrm.abs(), 1.0).to(h.dtype)
 
-    h = _gated_rms(h.reshape(B, L, d_in), p["gn"]["scale"], dt_)
+    h = _gated_rms(merge_last(h), p["gn"]["scale"], dt_)
     out = linear(p["wo"], h * F.silu(z), dt_)
 
     new_cache = None
@@ -327,6 +352,32 @@ def init_slstm(gen, cfg: ModelConfig, lead: Tuple[int, ...] = ()):
     }
 
 
+def _slstm_scan(gates_in, r, c, n, h, m, H: int, P: int):
+    """The sLSTM time loop on plain tensors: gates_in (B, L, 4, d), block
+    recurrent weights r (4, H, P, P), states (B, d) -> (h over time
+    (B, L, d) f32, c, n, h, m)."""
+    B, L, _, d = gates_in.shape
+    r = r.float()
+    hs = []
+    for t in range(L):
+        rec = torch.einsum("ghpq,bhq->bghp", r, h.reshape(B, H, P)
+                           ).reshape(B, 4, d)
+        pre = gates_in[:, t] + rec
+        zi = torch.tanh(pre[:, 0])
+        i_pre = pre[:, 1]  # per-cell exponential gates (B, d)
+        logf = F.logsigmoid(pre[:, 2])
+        o = torch.sigmoid(pre[:, 3])
+        m_new = torch.maximum(logf + m, i_pre)  # stabiliser state
+        i_g = torch.exp(i_pre - m_new)
+        f_g = torch.exp(logf + m - m_new)
+        c = f_g * c + i_g * zi
+        n = f_g * n + i_g
+        h = o * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), c, n, h, m
+
+
 def slstm(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
     """x: (B, L, d). Exponential gating with stabiliser state m (faithful).
 
@@ -345,25 +396,15 @@ def slstm(cfg: ModelConfig, p, x, *, cache=None, mode="train"):
         h = torch.zeros((B, d), dtype=f32, device=x.device)
         m = torch.zeros((B, d), dtype=f32, device=x.device)
 
-    r = p["r"].float()
-    hs = []
-    for t in range(L):
-        rec = torch.einsum("ghpq,bhq->bghp", r, h.reshape(B, H, P)
-                           ).reshape(B, 4, d)
-        pre = gates_in[:, t] + rec
-        zi = torch.tanh(pre[:, 0])
-        i_pre = pre[:, 1]  # per-cell exponential gates (B, d)
-        logf = F.logsigmoid(pre[:, 2])
-        o = torch.sigmoid(pre[:, 3])
-        m_new = torch.maximum(logf + m, i_pre)  # stabiliser state
-        i_g = torch.exp(i_pre - m_new)
-        f_g = torch.exp(logf + m - m_new)
-        c = f_g * c + i_g * zi
-        n = f_g * n + i_g
-        h = o * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)  # (B, L, d)
+    # the recurrence runs per batch row: under sharding rules, on each
+    # rank's rows (``local_apply``)
+    row = ("batch", None)
+    y, c, n, h, m = local_apply(
+        lambda g, r, c, n, h, m: _slstm_scan(g, r, c, n, h, m, H, P),
+        (gates_in, p["r"], c, n, h, m),
+        (("batch", None, None, None), (None,) * 4, row, row, row, row),
+        (("batch", None, None), row, row, row, row))
+    y = y.to(x.dtype)  # (B, L, d)
 
     # post-up/down projection (GLU, proj factor 4/3)
     y = apply_norm(cfg, p["ln"], y)

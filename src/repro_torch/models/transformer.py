@@ -45,7 +45,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import shard, whole_rows
 from repro_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -395,6 +395,7 @@ def forward(
 
     new_len = cache_len + 1 if decode else x.shape[1]
     new_caches = {"layers": new_layer_caches, "len": new_len}
+    x = whole_rows(x)  # the rows in order for the last position's pick
     last = x[:, -1] if mode == "prefill" else x[:, 0]
     logits = L.f32_einsum("bd,vd->bv", last,
                           params["out_head"]["table"].to(last.dtype))

@@ -13,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import f32_einsum
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import shard, whole_rows
 
 
 def _chunk_loss(h, lab, table, z_coef: float):
@@ -23,8 +23,10 @@ def _chunk_loss(h, lab, table, z_coef: float):
     logits = shard(logits, "batch", None, "vocab")
     logz = torch.logsumexp(logits, dim=-1)
     safe = torch.clamp_min(lab, 0)
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = logz - picked
+    picked = torch.gather(logits, -1, safe[..., None])
+    # subtract before dropping the gathered dim: with the vocab sharded,
+    # the gather's partial sum must be reduced at its own shape
+    nll = (logz[..., None] - picked)[..., 0]
     mask = (lab >= 0).float()
     zl = z_coef * torch.square(logz)
     return torch.sum((nll + zl) * mask), torch.sum(mask)
@@ -44,7 +46,9 @@ def chunked_lm_loss(cfg: ModelConfig, out_head, hidden, labels, *,
     sc = S // num_chunks
     table = out_head["table"]
 
-    hs = hidden.reshape(B, num_chunks, sc, d)
+    # the rows in order (a sequence-parallel stash gathered), so that
+    # chunks of the sequence are plain slices
+    hs = whole_rows(hidden).reshape(B, num_chunks, sc, d)
     ls = labels.long().reshape(B, num_chunks, sc)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)

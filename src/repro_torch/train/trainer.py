@@ -7,6 +7,13 @@ come from a ``torch.Generator`` seeded with ``tc.seed`` (the reference's
 distributions, not its bits), and a run resumed from a checkpoint
 reproduces the uninterrupted run bit for bit on the CPU (on a card, with
 ``torch.use_deterministic_algorithms(True)``).
+
+With ``mesh=`` (a ``DeviceMesh`` of the running job, ``launch/mesh.py``)
+and ``shape=``, every rank builds the same initial state from the seed on
+``device`` (its own card), keeps its blocks of it as DTensors laid out by
+``state_shardings``, restores a checkpoint leaf by leaf onto that layout,
+and steps through the sharded ``build_train_step``; checkpoints are
+written whole by rank 0.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data import SyntheticLMData
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import build_train_step, lay_out
 from repro_torch.models.transformer import init_params
 from repro_torch.train import checkpoint as CK
 from repro_torch.train.fault import PreemptionGuard, StragglerWatchdog
@@ -44,7 +51,9 @@ class Trainer:
         self.cfg, self.tc = cfg, tc
         self.device = torch.device(device)
         self.data = SyntheticLMData(cfg, global_batch, seq_len, seed=tc.seed)
-        self.step_fn, _, _, _ = build_train_step(cfg, tc, mesh, shape)
+        self.mesh = mesh
+        self.step_fn, in_sh, _, _ = build_train_step(cfg, tc, mesh, shape)
+        self.state_sh = in_sh[0] if in_sh is not None else None
         self.ckpt = CK.AsyncCheckpointer(tc.checkpoint_dir)
         self.watchdog = StragglerWatchdog()
         self.state = None
@@ -53,18 +62,23 @@ class Trainer:
     def init_or_resume(self, resume: bool = True):
         latest = CK.latest_step(self.tc.checkpoint_dir) if resume else None
         if latest is not None:
-            self.step, self.state = CK.restore(self.tc.checkpoint_dir, latest,
-                                               device=self.device)
+            self.step, self.state = CK.restore(
+                self.tc.checkpoint_dir, latest, shardings=self.state_sh,
+                device=self.device)
             log.info("resumed from step %d", self.step)
         else:
             gen = torch.Generator(self.device).manual_seed(self.tc.seed)
             params = init_params(self.cfg, gen)
+            if self.mesh is not None:  # each rank keeps its blocks
+                params = lay_out(params, self.state_sh["params"], self.mesh)
             self.state = {
                 "params": params,
                 "opt": init_opt_state(params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device),
             }
+            if self.mesh is not None:
+                self.state = lay_out(self.state, self.state_sh, self.mesh)
         return self.step
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:

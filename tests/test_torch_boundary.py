@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package, and no module of it (nor ``chip_smoke.py`` and
 ``chip_serve_ab.py``, which drive it on the card, nor the port's
-examples) imports either."""
+examples and ``scripts/gloo_cuda_probe.py``) imports either."""
 
 import ast
 import json
@@ -19,7 +19,8 @@ MODULES = sorted(PKG.rglob("*.py"))
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_serve_ab.py",
            ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "serve_private_bert_torch.py",
-           ROOT / "examples" / "train_lm_torch.py"]
+           ROOT / "examples" / "train_lm_torch.py",
+           ROOT / "scripts" / "gloo_cuda_probe.py"]
 
 
 def _module_name(path: Path) -> str:
@@ -64,7 +65,9 @@ def test_import_leaves_jax_and_repro_unloaded():
               "repro_torch.train.checkpoint", "repro_torch.train.fault",
               "repro_torch.train.trainer", "repro_torch.launch.specs",
               "repro_torch.launch.steps", "repro_torch.roofline.analysis",
-              "repro_torch.roofline.analytic"):
+              "repro_torch.roofline.analytic",
+              # the multi-rank plane
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
         assert m in names, m
     configs = sorted(p.stem for p in (PKG / "configs").glob("*.py")
                      if p.stem != "__init__")

@@ -458,3 +458,72 @@ def test_resume_is_bitwise_on_card(cuda):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["resumed_at"] == 4 and res["losses_equal"]
     assert res["leaves_equal"] == res["leaves"]
+
+
+# ---------------------------------------------------------------------------
+# the multi-rank plane on the card
+# ---------------------------------------------------------------------------
+
+
+def _four_ranks_prefill(out_path):
+    """Worker of the next test (run by ``torch.distributed.run``): reduced
+    ``llama3.2-1b`` (2 layers, f32) prefilled on a (2, 2) mesh of ranks
+    sharing the card and on one rank; rank 0 writes the difference."""
+    import json
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.config import ShapeConfig, get_config, reduced_config
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import transformer as MT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_ranks("gloo-staged", device="cuda")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = reduced_config(get_config("llama3.2-1b"), num_layers=2)
+    params = MT.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 16))).to(dev)
+    one, _, _, _ = build_prefill_step(cfg)
+    four, _, _, _ = build_prefill_step(cfg, mesh,
+                                       ShapeConfig("p", 16, 4, "prefill"))
+    want = one(params, {"tokens": toks})[0]
+    got = four(params, {"tokens": toks})[0]
+    assert isinstance(got, DTensor)
+    got = got.full_tensor()
+    if dist.get_rank() == 0:
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, **MODEL_TOL)
+        with open(out_path, "w") as f:
+            json.dump({"ok": ok, "max_abs_diff":
+                       float((got - want).abs().max())}, f)
+    dist.destroy_process_group()
+
+
+def test_four_ranks_prefill_on_card_matches_one_rank(cuda, tmp_path):
+    """Four gloo ranks on the one card (``gloo-staged``) prefill a reduced
+    model on a (2, 2) mesh as one rank does."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "four.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=4", __file__, str(out)],
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=300, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(out.read_text())
+    assert res["ok"], res
+
+
+if __name__ == "__main__":
+    import sys
+
+    _four_ranks_prefill(sys.argv[1])

@@ -200,17 +200,26 @@ def test_router_and_dense_moe_equal_reference(arch):
 
 
 def test_sharding_is_the_identity_on_one_device():
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import AbstractMesh
+
     x = torch.ones(2, 3)
     assert sharding.shard(x, "batch", None) is x
     assert sharding.axis_size_of("attn_seq") == 1
-    rules = sharding.Rules(axis_sizes={"data": 2, "model": 4},
+    rules = sharding.Rules(mesh=AbstractMesh((2, 4), ("data", "model")),
                            table={"batch": ("data",), "heads": ("model",)})
     with sharding.use_rules(rules):
         assert sharding.active_rules() is rules
         assert sharding.axis_size_of("heads") == 4
         assert sharding.axis_size_of("vocab") == 1
-        with pytest.raises(NotImplementedError):
-            sharding.shard(x, "batch", None)
+        # under rules ``shard`` lays tensors out as DTensors with these
+        # placements (run on ranks in tests/test_torch_mesh_ranks.py)
+        spec = rules.spec("batch", None, "heads")
+        assert tuple(spec) == ("data", None, "model")
+        assert sharding.placements(spec, rules.mesh) == [Shard(0), Shard(2)]
+        assert sharding.placements(rules.spec(None, "vocab"), rules.mesh) \
+            == [Replicate(), Replicate()]
     assert sharding.active_rules() is None
 
 
