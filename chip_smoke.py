@@ -114,7 +114,15 @@ Phases, each asserting (any failure exits non-zero and prints no result):
               loss == one rank's
               (run here after the ranks exit); (d) the int8 ring on the
               card == the CPU's, bit for bit; (e) sharded checkpoints
-              across 4 ranks and 1, bit for bit (see ``phase_mesh``).
+              across 4 ranks and 1, bit for bit (see ``phase_mesh``);
+16. smokes  — the port's CI smokes, each a subprocess with its own time
+              limit: ``scripts/trace_check.py`` on the ``net`` phase's
+              trace; ``scripts/net_smoke_torch.py --trace`` on the card and
+              ``trace_check.py`` on its trace; ``scripts/chaos_smoke_torch.py``
+              (4 seeded fault schedules over a TCP gateway);
+              ``scripts/smoke_models_torch.py`` (every reduced
+              architecture); ``scripts/lint_torch.py --all`` (see
+              ``phase_smokes``).
 
 Phase 3 also runs the NTT at N = 16384 and 32768 (bit-exact at their HE
 primes, a 31-bit prime and ragged rows; profiler times, warm and cold, at
@@ -154,6 +162,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 COLD_BYTES = 200e6
 
 DEVICE = "cuda"
+#: the serving path's kernels, and the per-level kernels it must not launch
+PATH_KERNELS = ("garble_walk", "eval_walk", "select_labels", "ntt")
+LEVEL_KERNELS = ("eval_level", "garble_level")
+
+
+def _launches(names):
+    """The launch counts of the kernels in ``names``, as
+    ``repro_torch.kernels.launch_counts`` names them."""
+    from repro_torch.kernels import launch_counts
+
+    got = launch_counts()
+    return {k: got[k] for k in names}
 
 
 def _ms_events(fn, reps):
@@ -584,7 +604,7 @@ def phase_ntt_large(args):
                          device=dev)
         torch.cuda.synchronize()
         secs[dev] = time.perf_counter() - t0
-        launches = NTT.ntt_forward.launches + NTT.ntt_inverse.launches
+        launches = _launches(("ntt",))["ntt"]
         assert (launches > 0) == (dev == DEVICE), (dev, launches)
         keys[dev] = [pr.sk.cpu(), *(c.cpu() for c in pr.pk)]
     assert all(torch.equal(a, b) for a, b in zip(keys[DEVICE], keys["cpu"])), \
@@ -730,11 +750,10 @@ def phase_gates(args, gates):
     lc = LE.eval_level(ops, a, b, ltg, lte, tw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"garble_and": HK.garble_gates.launches,
-                "eval_and": HK.eval_gates.launches,
-                "select_labels": LS.select_labels.launches,
-                "garble_level": LE.garble_level.launches,
-                "eval_level": LE.eval_level.launches}
+    got = _launches(("garble_gates", "eval_gates", "select_labels")
+                    + LEVEL_KERNELS)
+    launches = {"garble_and": got.pop("garble_gates"),
+                "eval_and": got.pop("eval_gates"), **got}
     # the output label encodes a AND b: c == c0 ^ (R if a & b)
     want = c0 ^ (r & -(abits & bbits).to(torch.int32)[:, None])
     assert torch.equal(c, want), "Half-Gate outputs do not decode to a & b"
@@ -764,7 +783,7 @@ def phase_he(args):
     from repro_torch.kernels.ntt import ntt as NTT
 
     def launches():
-        return NTT.ntt_forward.launches + NTT.ntt_inverse.launches
+        return _launches(("ntt",))["ntt"]
 
     rng = np.random.default_rng(args.seed)
     shapes = [(args.d, args.d), (args.d_ff, args.d)]  # (d_out, d_in)
@@ -967,13 +986,8 @@ def phase_serve(args):
             torch.cuda.synchronize()
             t_req.append(time.perf_counter() - t0)
         t_on = sum(t_req)
-        launches = {"eval_walk": LE.eval_walk.launches,
-                    "garble_walk": LE.garble_walk.launches,
-                    "ntt": NTT.ntt_forward.launches
-                    + NTT.ntt_inverse.launches,
-                    "select_labels": LS.select_labels.launches}
-        chunk_launches = {"eval_level": LE.eval_level.launches,
-                          "garble_level": LE.garble_level.launches}
+        launches = _launches(PATH_KERNELS)
+        chunk_launches = _launches(LEVEL_KERNELS)
     finally:
         obs.disable()
     st = engine.stats(S)
@@ -1303,13 +1317,8 @@ def phase_net(args, serve, serve_ys):
     tracer = obs.enable()
     try:
         v2, ys2, cli, srv, _ = two_party(2, tcp=False)
-        launches = {"garble_walk": LE.garble_walk.launches,
-                    "eval_walk": LE.eval_walk.launches,
-                    "select_labels": LS.select_labels.launches,
-                    "ntt": NTT.ntt_forward.launches
-                    + NTT.ntt_inverse.launches}
-        chunk_launches = {"eval_level": LE.eval_level.launches,
-                          "garble_level": LE.garble_level.launches}
+        launches = _launches(PATH_KERNELS)
+        chunk_launches = _launches(LEVEL_KERNELS)
         spans = tracer.report()
         v2["d2h_s"] = _span_total(spans, "net.d2h")
         v2["h2d_s"] = _span_total(spans, "net.h2d")
@@ -1320,6 +1329,9 @@ def phase_net(args, serve, serve_ys):
                          for k in ("encode", "decode")}
         v2["spans_s"] = {k: v["total_s"] for k, v in sorted(
             spans.items(), key=lambda kv: -kv[1]["total_s"])[:30]}
+        # the v2 run's trace, for the smokes phase's trace_check
+        SMOKES_DIR.mkdir(parents=True, exist_ok=True)
+        tracer.export(str(NET_TRACE))
     finally:
         obs.disable()
     assert all(v > 0 for v in launches.values()), launches
@@ -1381,7 +1393,8 @@ def phase_net(args, serve, serve_ys):
               f"({100 * warm['busy_share']:.2f}%)")
     print(f"[net] in-process v2 session for the check: {t_sess:.2f} s")
     return ({"v2_pipe": v2, "v1_tcp": v1, "launches": launches,
-             "level_launches": chunk_launches, "session_v2_s": t_sess},
+             "level_launches": chunk_launches, "session_v2_s": t_sess,
+             "trace": str(NET_TRACE.relative_to(ROOT))},
             model, xs, srv1.shared)
 
 
@@ -1495,13 +1508,7 @@ def _gateway_client_run(role, port, seed, x, device, conn):
     out["online_s"] = time.perf_counter() - t0
     out["ledger"] = {ph: dict(getattr(ledger, ph).by_tag)
                      for ph in ("offline", "online")}
-    out["launches"] = {
-        "garble_walk": LE.garble_walk.launches,
-        "eval_walk": LE.eval_walk.launches,
-        "select_labels": LS.select_labels.launches,
-        "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches,
-        "eval_level": LE.eval_level.launches,
-        "garble_level": LE.garble_level.launches}
+    out["launches"] = _launches(PATH_KERNELS + LEVEL_KERNELS)
     if role == "resilient":
         out["stats"] = cli.stats()
         out["injected"] = fts[1].injected
@@ -1651,17 +1658,11 @@ def phase_gateway(args, model, xs, shared, serve_ys):
     assert set(new.values()) == {st["bundles_prepped"]}, new
 
     # launches in every process: the server (here) and both clients
-    server = {"garble_walk": LE.garble_walk.launches,
-              "eval_walk": LE.eval_walk.launches,
-              "select_labels": LS.select_labels.launches,
-              "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches,
-              "eval_level": LE.eval_level.launches,
-              "garble_level": LE.garble_level.launches}
+    server = _launches(PATH_KERNELS + LEVEL_KERNELS)
     total = {k: server[k] + plain["launches"][k] + resil["launches"][k]
              for k in server}
-    launches = {k: total[k] for k in ("garble_walk", "eval_walk",
-                                      "select_labels", "ntt")}
-    chunk_launches = {k: total[k] for k in ("eval_level", "garble_level")}
+    launches = {k: total[k] for k in PATH_KERNELS}
+    chunk_launches = {k: total[k] for k in LEVEL_KERNELS}
     assert all(v > 0 for v in launches.values()), launches
     assert not any(chunk_launches.values()), chunk_launches
     metrics = gw.metrics()
@@ -1735,12 +1736,8 @@ def phase_eager(args, serve_ys):
     y = model.forward_private(x)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"garble_walk": LE.garble_walk.launches,
-                "eval_walk": LE.eval_walk.launches,
-                "select_labels": LS.select_labels.launches,
-                "ntt": NTT.ntt_forward.launches + NTT.ntt_inverse.launches}
-    chunk_launches = {"eval_level": LE.eval_level.launches,
-                      "garble_level": LE.garble_level.launches}
+    launches = _launches(PATH_KERNELS)
+    chunk_launches = _launches(LEVEL_KERNELS)
     assert y.shape == (S, d) and np.isfinite(y).all(), y.shape
     assert np.array_equal(y, serve_ys[0]), \
         "forward_private != the serving phase's first output"
@@ -2870,6 +2867,108 @@ def phase_mesh(args):
     return res
 
 
+#: where the smokes phase's traces and results go (``/build/`` is
+#: ignored by git)
+SMOKES_DIR = ROOT / "build" / "smokes"
+NET_TRACE = SMOKES_DIR / "net_trace.json"
+#: each part's subprocess limit in seconds (the scripts' own SIGALRM
+#: limits sit inside these)
+SMOKES_TIMEOUT = {"a": 60, "b": 300, "c": 300, "d": 300, "e": 120}
+#: the chaos sweep's seeds on the card: 4 of the CI's 8, for the script's
+#: time limit (PERF.md §6)
+SMOKES_CHAOS_SEEDS = 4
+#: kernels each two-party part must have launched on the card
+SMOKES_PATH_KERNELS = ("garble_walk", "eval_walk", "select_labels")
+
+
+def phase_smokes(args):
+    """The port's CI smokes on the card, each a subprocess with its own
+    time limit (a nonzero exit, a timeout or a trace finding fails the
+    run): (a) ``scripts/trace_check.py`` on the ``net`` phase's trace
+    (BERT-base width, wire v2 over ``InProcPipe``); then, at once, (b)
+    ``scripts/net_smoke_torch.py --trace`` (two parties over loopback TCP
+    and a two-client gateway pass with a kill, d=8, S=4, the reference
+    smoke's 40-bit ring) followed by ``trace_check.py`` on its trace; (c)
+    ``scripts/chaos_smoke_torch.py`` over ``SMOKES_CHAOS_SEEDS`` seeded
+    fault schedules (each seed bit-identical or typed, the bundle
+    identity and the error-frame whitelist held); (d)
+    ``scripts/smoke_models_torch.py`` (every reduced architecture: a
+    forward pass, a train step, a prefill and a decode step); (e)
+    ``scripts/lint_torch.py --all`` against the port's baseline. Every
+    part has ended before any result is read. (b) and (c) print their
+    kernel launches, which must include the walk kernels and label
+    select."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    SMOKES_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    scripts = ROOT / "scripts"
+    net_trace = SMOKES_DIR / "net_smoke_trace.json"
+
+    def run(key, *argv):
+        """Run ``argv`` under the part's limit (``subprocess.run`` kills
+        the child at the limit and raises); returns (argv, proc, s)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *map(str, argv)], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=SMOKES_TIMEOUT[key])
+        return argv, proc, time.perf_counter() - t0
+
+    def net_then_check():
+        first = run("b", scripts / "net_smoke_torch.py", "--device", DEVICE,
+                    "--timeout", 240, "--trace", net_trace)
+        if first[1].returncode:
+            return [first]
+        return [first, run("b", scripts / "trace_check.py", net_trace)]
+
+    def check(key, argv, proc, secs):
+        tail = proc.stdout.strip().splitlines()[-1:] or [""]
+        assert proc.returncode == 0, f"[smokes] ({key}) {argv[0]} exited " \
+            f"{proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-6000:]}"
+        res.setdefault(key, {"s": 0.0})["s"] += secs
+        print(f"[smokes] ({key}) {Path(argv[0]).name} {secs:.1f} s: "
+              f"{tail[0]}", flush=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("kernel launches: "):
+                got = json.loads(line.split(": ", 1)[1])
+                missing = [k for k in SMOKES_PATH_KERNELS if not got[k]]
+                assert not missing, f"[smokes] ({key}) launched no {missing}"
+                res[key]["launches"] = got
+                print(f"[smokes] ({key}) kernel launches {json.dumps(got)}",
+                      flush=True)
+
+    res = {}
+    check("a", *run("a", scripts / "trace_check.py", NET_TRACE))
+    with ThreadPoolExecutor(4) as pool:
+        net = pool.submit(net_then_check)
+        chaos = pool.submit(run, "c", scripts / "chaos_smoke_torch.py",
+                            "--device", DEVICE, "--seeds",
+                            SMOKES_CHAOS_SEEDS, "--timeout", 240)
+        models = pool.submit(run, "d", scripts / "smoke_models_torch.py",
+                             "--device", DEVICE)
+        lint = pool.submit(run, "e", scripts / "lint_torch.py", "--all",
+                           "--baseline",
+                           "src/repro_torch/analysis/baseline.json")
+    # the pool has joined every part: none is left running
+    for got in net.result():
+        check("b", *got)
+    check("c", *chaos.result())
+    check("d", *models.result())
+    check("e", *lint.result())
+    assert all("launches" in res[k] for k in "bc"), res
+    res["c"]["seeds"] = [line for line in chaos.result()[1].stdout
+                         .splitlines() if line.startswith("seed ")]
+    for line in res["c"]["seeds"]:
+        print(f"[smokes] (c) {line}", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print("[smokes] phase {:.1f} s (b to e at once): ".format(
+        res["seconds"]) + ", ".join(f"({k}) {res[k]['s']:.1f}"
+                                    for k in "abcde"), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=1,
@@ -2962,6 +3061,8 @@ def main(argv=None) -> int:
     lap("train")
     mesh = phase_mesh(args)
     lap("mesh")
+    smokes = phase_smokes(args)
+    lap("smokes")
 
     src = {Path(p).parent.parent.name: str(Path(p).relative_to(ROOT))
            for p in _sources()}
@@ -3070,7 +3171,7 @@ def main(argv=None) -> int:
             "he": he, "serve": serve, "walks": walks,
             "profile": prof, "net": net, "gateway": gateway,
             "eager": eager, "model": model, "train": train, "mesh": mesh,
-            "total_s": total}, indent=1,
+            "smokes": smokes, "total_s": total}, indent=1,
             default=float))
     print(f"[done] {total:.1f} s")
     print(json.dumps({"kernels": kernels}))

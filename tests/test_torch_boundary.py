@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package, and no module of it (nor ``chip_smoke.py`` and
 ``chip_serve_ab.py``, which drive it on the card, nor the port's
-examples and ``scripts/gloo_cuda_probe.py``) imports either."""
+examples, ``scripts/gloo_cuda_probe.py`` and the port's CI smokes and lint
+entry point, ``scripts/*_torch.py``) imports either."""
 
 import ast
 import json
@@ -20,7 +21,11 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_serve_ab.py",
            ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "serve_private_bert_torch.py",
            ROOT / "examples" / "train_lm_torch.py",
-           ROOT / "scripts" / "gloo_cuda_probe.py"]
+           ROOT / "scripts" / "gloo_cuda_probe.py",
+           ROOT / "scripts" / "net_smoke_torch.py",
+           ROOT / "scripts" / "chaos_smoke_torch.py",
+           ROOT / "scripts" / "smoke_models_torch.py",
+           ROOT / "scripts" / "lint_torch.py"]
 
 
 def _module_name(path: Path) -> str:
