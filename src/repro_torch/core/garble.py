@@ -10,7 +10,10 @@ Labels and tables are int32 tensors (uint32 bit patterns) on the
 caller's ``device``; the JAX package's host-side numpy walk
 (``impl="ref"``) is its oracle and is not ported. Labels are drawn from
 an explicit ``torch.Generator``: R first, then the source wires'
-zero-labels, so one seed gives the same circuit on every device.
+zero-labels, so one seed gives the same circuit on every device. In
+:func:`garble` the ``garble.draw`` span covers those draws until the
+zero-labels sit on the device; the walk after it is the executor's
+``gc_exec.garble`` span.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import labels as LB
 from repro_torch.core.gc_exec import get_executor
 from repro_torch.core.netlist import Netlist
@@ -120,11 +124,13 @@ def garble(net: Netlist, gen: torch.Generator, instances: int = 1, *,
     exe = get_executor(net, I, device, compact=not keep_wires,
                        garbling=True)
     plan = exe.plan
-    r = LB.random_delta(gen, (I,), device)
-    src_labels = LB.random_labels(gen, (I, len(plan.source_ids)), device)
-    if seeded_inputs is not None:
-        wids, zeros = _seeded_zero_labels(seeded_inputs, I, r)
-        src_labels[:, _index(plan.source_positions(wids), device)] = zeros
+    n_src = len(plan.source_ids)
+    with obs.span("garble.draw", instances=I, words=I * (n_src + 1) * 4):
+        r = LB.random_delta(gen, (I,), device)
+        src_labels = LB.random_labels(gen, (I, n_src), device)
+        if seeded_inputs is not None:
+            wids, zeros = _seeded_zero_labels(seeded_inputs, I, r)
+            src_labels[:, _index(plan.source_positions(wids), device)] = zeros
     res = exe.garble(src_labels, r, keep_wires=keep_wires)
     src_zero, tables, out_perm = res[:3]
     in_zero = src_zero[:, _index(plan.source_positions(in_ids), device)]

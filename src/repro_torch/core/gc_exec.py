@@ -35,8 +35,12 @@ CPU; the results here are bit-identical to its executor given the same
 ``(src_labels, R)`` — which is what ``tests/test_torch_gc_exec.py`` holds
 the port to — not its structure.
 
-``n_eval_calls`` / ``n_garble_calls`` count invocations; the
-``gc_exec.evaluate`` / ``gc_exec.garble`` spans wrap each walk.
+``n_eval_calls`` / ``n_garble_calls`` count invocations. Spans:
+``gc_exec.get_executor`` around each lookup (building a plan and
+executor on a miss), ``gc_exec.evaluate`` / ``gc_exec.garble`` around
+each walk (``netlist``, ``instances``). The labels a garble walk starts
+from are drawn before it, in :func:`repro_torch.core.garble.garble`'s
+``garble.draw`` span.
 """
 
 from __future__ import annotations
@@ -143,7 +147,7 @@ class LevelExecutor:
         self.n_eval_calls += 1
         with obs.span("gc_exec.evaluate",
                       netlist=getattr(self.plan._net, "name", "") or "",
-                      instances=self.instances, device=str(self.device)):
+                      instances=self.instances):
             return self._evaluate(active, tables)
 
     def _evaluate(self, active, tables):
@@ -173,7 +177,7 @@ class LevelExecutor:
         self.n_garble_calls += 1
         with obs.span("gc_exec.garble",
                       netlist=getattr(self.plan._net, "name", "") or "",
-                      instances=self.instances, device=str(self.device)):
+                      instances=self.instances):
             return self._garble(src_labels, r, keep_wires)
 
     def _garble(self, src_labels, r, keep_wires):

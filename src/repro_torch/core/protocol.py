@@ -433,15 +433,17 @@ class PiTProtocol:
         with self._netlist_lock:
             if name in self._netlist_cache:
                 return self._netlist_cache[name]
-            cb = CircuitBuilder(name)
-            ins = [input_shared_word(cb, self.t, descale)
-                   for _ in range(n_in)]
-            raws = [cb.e_input_word(self.k) for _ in range(n_raw_e)]
-            outs = body(cb, ins, raws) if n_raw_e else body(cb, ins)
-            assert len(outs) == n_out
-            for y in outs:
-                output_shared(cb, Word(y.bits[: self.k]), self.t)
-            net = self._netlist_cache[name] = cb.build()
+            with obs.span("circuit.build", netlist=name) as sp:
+                cb = CircuitBuilder(name)
+                ins = [input_shared_word(cb, self.t, descale)
+                       for _ in range(n_in)]
+                raws = [cb.e_input_word(self.k) for _ in range(n_raw_e)]
+                outs = body(cb, ins, raws) if n_raw_e else body(cb, ins)
+                assert len(outs) == n_out
+                for y in outs:
+                    output_shared(cb, Word(y.bits[: self.k]), self.t)
+                net = self._netlist_cache[name] = cb.build()
+                sp.set(and_gates=net.and_count, gates=net.num_gates)
             return net
 
     def gc_offline(self, net: Netlist, instances: int, n_out: int,
@@ -462,8 +464,11 @@ class PiTProtocol:
             if gcirc is None:
                 gcirc = G.garble(net, self.gen, I, device=self.device)
             assert gcirc.num_instances == I
-            masks = self.rng.integers(0, self.t, (I, n_out), dtype=np.uint64)
-            mask_enc = SS.sub_mod(np.zeros_like(masks), masks, self.t)  # t − r
+            with obs.span("gc_offline.masks", instances=I, n_out=n_out):
+                masks = self.rng.integers(0, self.t, (I, n_out),
+                                          dtype=np.uint64)
+                mask_enc = SS.sub_mod(np.zeros_like(masks), masks,
+                                      self.t)  # t − r
             if self.wire_version >= 2 and self.compression:
                 # delta-encoded table batch: each op meters its linear
                 # per-instance share; the slab's fixed anchor + the seed
@@ -523,55 +528,66 @@ class PiTProtocol:
         net, gcirc = corr.net, corr.gcirc
         k = self.k
         st = self.stats
+        I = int(np.asarray(xc).shape[0])
         with st.phase("online"), \
-                obs.span("gc_online", netlist=net.name,
-                         instances=int(np.asarray(xc).shape[0])):
-            g_bits = np.concatenate(
-                [bits_of(xc, k, self.t), bits_of(corr.mask_enc, k, self.t)],
-                axis=1,
-            )
-            assert g_bits.shape[1] == len(net.garbler_inputs)
-            g_lab = G.encode_inputs(gcirc, net.garbler_inputs, g_bits)
-            # labels for the client's live input share (the mask-label half
-            # was already transferred with the tables during preprocessing)
-            xc_bits = len(net.garbler_inputs) - corr.n_out * k
-            st.channel_online.c2s(xc.shape[0] * xc_bits * 16, "g-labels")
-            e_bits = bits_of(xs, k, self.t)
-            if raw_e is not None:
-                rv = np.mod(np.asarray(raw_e, np.int64), 1 << k).astype(np.uint64)
-                e_bits = np.concatenate(
-                    [e_bits, bits_of(rv, k, 1 << k)], axis=1
+                obs.span("gc_online", netlist=net.name, instances=I):
+            with obs.span("gc_online.encode", instances=I,
+                          bits=len(net.garbler_inputs)
+                          + len(net.evaluator_inputs)):
+                g_bits = np.concatenate(
+                    [bits_of(xc, k, self.t),
+                     bits_of(corr.mask_enc, k, self.t)],
+                    axis=1,
                 )
-            e_zero = G.input_zeros(gcirc, net.evaluator_inputs)
-            if self.wire_version >= 2:
-                # real IKNP extension: lazy one-time base OT (the
-                # evaluator is the base-OT *sender*: A is s2c, the κ
-                # B-elements come back c2s), then per-batch column
-                # matrix u (16 B/OT, c2s like the old sim request) and
-                # masked label pairs (32 B/OT s2c, down from 48)
-                ch = st.channel_online
-                if not st.ot_base_metered:
-                    st.ot_base_metered = True
-                    ch.s2c(BASE_OT_A_BYTES, "ot-base")
-                    ch.c2s(BASE_OT_B_BYTES, "ot-base")
-                n_ot = int(np.prod(e_bits.shape))
-                ch.c2s(ot_v2_request_bytes(n_ot), f"ot:{net.name}")
-                ch.s2c(ot_v2_response_bytes(n_ot), f"ot:{net.name}")
-                e_lab = choose_labels(e_zero, gcirc.r[:, None, :], e_bits)
-            else:
-                e_lab = ot_labels(st.channel_online, e_zero,
-                                  gcirc.r[:, None, :], e_bits,
-                                  tag=f"ot:{net.name}")
-            # packed active labels: one (wire_ids, (I, n, 4)) pair straight
-            # into the device executor — no per-wire host-side dict work
-            cw, c_lab = G.const_wires_labels(gcirc)
-            wire_ids = np.concatenate([
-                np.asarray(net.garbler_inputs, np.int64),
-                np.asarray(net.evaluator_inputs, np.int64), cw])
-            labels = torch.cat([g_lab, e_lab, c_lab], dim=1)
+                assert g_bits.shape[1] == len(net.garbler_inputs)
+                g_lab = G.encode_inputs(gcirc, net.garbler_inputs, g_bits)
+                # labels for the client's live input share (the mask-label
+                # half was already transferred with the tables during
+                # preprocessing)
+                xc_bits = len(net.garbler_inputs) - corr.n_out * k
+                st.channel_online.c2s(xc.shape[0] * xc_bits * 16, "g-labels")
+                e_bits = bits_of(xs, k, self.t)
+                if raw_e is not None:
+                    rv = np.mod(np.asarray(raw_e, np.int64),
+                                1 << k).astype(np.uint64)
+                    e_bits = np.concatenate(
+                        [e_bits, bits_of(rv, k, 1 << k)], axis=1
+                    )
+                e_zero = G.input_zeros(gcirc, net.evaluator_inputs)
+                if self.wire_version >= 2:
+                    # real IKNP extension: lazy one-time base OT (the
+                    # evaluator is the base-OT *sender*: A is s2c, the κ
+                    # B-elements come back c2s), then per-batch column
+                    # matrix u (16 B/OT, c2s like the old sim request) and
+                    # masked label pairs (32 B/OT s2c, down from 48)
+                    ch = st.channel_online
+                    if not st.ot_base_metered:
+                        st.ot_base_metered = True
+                        ch.s2c(BASE_OT_A_BYTES, "ot-base")
+                        ch.c2s(BASE_OT_B_BYTES, "ot-base")
+                    n_ot = int(np.prod(e_bits.shape))
+                    ch.c2s(ot_v2_request_bytes(n_ot), f"ot:{net.name}")
+                    ch.s2c(ot_v2_response_bytes(n_ot), f"ot:{net.name}")
+                    e_lab = choose_labels(e_zero, gcirc.r[:, None, :],
+                                          e_bits)
+                else:
+                    e_lab = ot_labels(st.channel_online, e_zero,
+                                      gcirc.r[:, None, :], e_bits,
+                                      tag=f"ot:{net.name}")
+                # packed active labels: one (wire_ids, (I, n, 4)) pair
+                # straight into the device executor — no per-wire
+                # host-side dict work
+                cw, c_lab = G.const_wires_labels(gcirc)
+                wire_ids = np.concatenate([
+                    np.asarray(net.garbler_inputs, np.int64),
+                    np.asarray(net.evaluator_inputs, np.int64), cw])
+                labels = torch.cat([g_lab, e_lab, c_lab], dim=1)
             out_lab = G.evaluate(net, gcirc.tables, (wire_ids, labels))
-            out_bits = G.decode_outputs(gcirc, out_lab)
-            server_share = words_from_bits(out_bits, k, self.t)
+            # the .cpu() inside waits for the walk
+            with obs.span("gc_online.decode", instances=I,
+                          n_out=corr.n_out):
+                out_bits = G.decode_outputs(gcirc, out_lab)
+                server_share = words_from_bits(out_bits, k, self.t)
         return corr.masks, server_share  # client share = r (masks)
 
     # ------------------------------------------------------------------

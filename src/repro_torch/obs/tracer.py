@@ -25,9 +25,21 @@ the trace buffer only when tracing is on, but ``elapsed_s`` is always
 valid. This keeps one timing code path instead of three hand-rolled
 ``perf_counter()`` deltas.
 
-Spans never enter jitted bodies: instrument host-side dispatch
-boundaries only (``jit_hygiene`` stays green by construction — this
-module is pure stdlib and is never imported from a kernel body).
+Spans never enter kernels: instrument host-side dispatch only (this
+module is pure stdlib). No attribute is read from a device tensor, so a
+span never synchronises. The garbled-circuit path records, with their
+parents:
+
+- ``circuit.build`` — a netlist built on a cache miss
+  (``PiTProtocol.build_fn_circuit``);
+- ``gc_exec.get_executor`` — a level plan and executor looked up or
+  built;
+- ``garble.draw`` — R and the source zero-labels drawn and moved to the
+  device (``garble.garble``), beside its ``gc_exec.garble`` walk;
+- ``gc_offline`` / ``gc_offline.masks`` — the output-mask draws;
+- ``gc_online`` / ``gc_online.encode`` (bit packing, garbler encoding,
+  the OT label choice), ``gc_exec.evaluate`` (the walk) and
+  ``gc_online.decode`` (waits for the walk, then decodes).
 """
 from __future__ import annotations
 
@@ -70,8 +82,6 @@ class Span:
         end = self.t1_ns if self.t1_ns is not None else time.perf_counter_ns()
         return (end - self.t0_ns) * 1e-9
 
-    duration_s = elapsed_s
-
     def set(self, **attrs):
         """Attach scalar attributes (sizes/tags/counts — no payloads)."""
         self.attrs.update(_check_attrs(attrs))
@@ -100,7 +110,6 @@ class _NullSpan:
     attrs: dict = {}
     path = ""
     elapsed_s = 0.0
-    duration_s = 0.0
 
     def set(self, **attrs):
         return self
